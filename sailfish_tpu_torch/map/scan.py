@@ -1,0 +1,216 @@
+"""The MMP scan: per oriented read lane, the bounded maximal-mappable-
+prefix search against the k-mer table and suffix array.
+
+Counterpart of sailfish_tpu/map/pallas_kernel.py `mmp_scan_pallas`
+(the Pallas `_scan_kernel`) and of the scan loop of map/kernels.py
+`map_oriented_lanes`.  `mmp_scan` dispatches on the lanes' device: a
+CUDA tensor launches the hand-written kernel (csrc/mmp_scan.cu, through
+`mmp_scan_cuda`); a CPU tensor runs `mmp_scan_reference`, the plain
+torch version.  A CUDA tensor never reaches the plain version, and a
+kernel build or launch failure raises.
+
+Outputs, per lane (B2 lanes, C = cand_cap, M = max_mmps):
+  txp, pos  int32 (B2, M*C)  slot m*C + c: candidate c of MMP m — its
+                             transcript and in-transcript position minus
+                             the query offset i of that MMP
+  valid     bool  (B2, M*C)  candidate achieved the MMP length lstar
+  meta      int32 (B2, 4)    [n_mmps, overflow, mlen (first MMP's lstar),
+                              probed positions]
+Slots of MMPs a lane did not find are zero.  Slot order within an MMP
+follows the suffix array; the post-pass (map/postpass.py) canonicalizes.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..bits import mix_kmer, to_i32, u32
+from ..index.device import TorchIndex
+
+
+def _check(lanes: dict, index: TorchIndex, cand_cap: int, max_mmps: int):
+    codes, pw, lens = lanes["codes"], lanes["pw"], lanes["lens"]
+    if codes.dtype != torch.uint8 or pw.dtype != torch.int32 \
+            or lens.dtype != torch.int32:
+        raise TypeError("lanes need uint8 codes, int32 pw and int32 lens")
+    if codes.dim() != 2 or pw.shape != codes.shape \
+            or lens.shape != codes.shape[:1]:
+        raise ValueError("lane arrays disagree in shape")
+    if not (17 <= index.k <= 31):
+        raise ValueError(f"the scan needs 17 <= k <= 31 (got {index.k})")
+    if cand_cap < 1 or max_mmps < 1:
+        raise ValueError("cand_cap and max_mmps must be positive")
+    for t in (codes, pw, lens):
+        if t.device != index.device:
+            raise ValueError(
+                f"lanes on {t.device} but the index is on {index.device}")
+
+
+def mmp_scan(lanes: dict, index: TorchIndex, *, cand_cap: int,
+             max_mmps: int, max_steps: int, skip_jump: bool = False):
+    """Scan every lane; returns (txp, pos, valid, meta) as documented in
+    the module docstring."""
+    _check(lanes, index, cand_cap, max_mmps)
+    dev = lanes["codes"].device
+    kw = dict(cand_cap=cand_cap, max_mmps=max_mmps, max_steps=max_steps,
+              skip_jump=skip_jump)
+    if dev.type == "cuda":
+        return mmp_scan_cuda(lanes, index, **kw)
+    if dev.type == "cpu":
+        return mmp_scan_reference(lanes, index, **kw)
+    raise ValueError(f"unsupported device: {dev}")
+
+
+def mmp_scan_cuda(lanes: dict, index: TorchIndex, *, cand_cap: int,
+                  max_mmps: int, max_steps: int, skip_jump: bool = False):
+    """Launch csrc/mmp_scan.cu on the current stream of the lanes' CUDA
+    device.  `mmp_scan_cuda.launches` counts successful launches."""
+    from .. import _ext
+
+    _check(lanes, index, cand_cap, max_mmps)
+    codes = lanes["codes"].contiguous()
+    pw = lanes["pw"].contiguous()
+    lens = lanes["lens"].contiguous()
+    dev = codes.device
+    if dev.type != "cuda":
+        raise ValueError(f"mmp_scan_cuda needs CUDA tensors (got {dev})")
+    kl = _ext.load()
+    B2, L = codes.shape
+    C, M = cand_cap, max_mmps
+    txp = torch.zeros((B2, M * C), dtype=torch.int32, device=dev)
+    pos = torch.zeros((B2, M * C), dtype=torch.int32, device=dev)
+    vld = torch.zeros((B2, M * C), dtype=torch.uint8, device=dev)
+    meta = torch.empty((B2, 4), dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = kl.lib.sf_mmp_scan(
+        codes.data_ptr(), pw.data_ptr(), lens.data_ptr(), B2, L,
+        index.codes.data_ptr(), index.sa.data_ptr(), index.ht.data_ptr(),
+        index.txp_of_pos.data_ptr(), index.txp_offsets.data_ptr(),
+        index.k, C, M, max_steps, index.ht_bits, index.ht_probes,
+        int(skip_jump), txp.data_ptr(), pos.data_ptr(), vld.data_ptr(),
+        meta.data_ptr(), dev.index, stream,
+    )
+    kl.check(err, "mmp_scan kernel launch")
+    mmp_scan_cuda.launches += 1
+    return txp, pos, vld.view(torch.bool), meta
+
+
+mmp_scan_cuda.launches = 0
+
+
+def _probe(index: TorchIndex, key0: torch.Tensor, key1: torch.Tensor):
+    """Bucketed k-mer table lookup (map/kernels.py seed_hash): up to
+    ht_probes buckets from the key's home bucket; a matching entry is a
+    find, an empty entry in a probed bucket a miss.  Returns
+    (found, lo, cnt)."""
+    mask = (1 << index.ht_bits) - 1
+    h = mix_kmer(key0, key1) & mask
+    k0 = to_i32(key0)[:, None]
+    k1 = to_i32(key1)[:, None]
+    n = key0.shape[0]
+    found = torch.zeros(n, dtype=torch.bool, device=key0.device)
+    done = torch.zeros_like(found)
+    lo = torch.zeros(n, dtype=torch.int64, device=key0.device)
+    cnt = torch.zeros_like(lo)
+    for _ in range(index.ht_probes):
+        row = index.ht[h]
+        cr = row[:, 12:16]
+        match = (cr > 0) & (row[:, 0:4] == k0) & (row[:, 4:8] == k1)
+        anym = match.any(dim=1)
+        j = match.to(torch.uint8).argmax(dim=1, keepdim=True)
+        take = ~done & anym
+        lo = torch.where(take, row[:, 8:12].gather(1, j)[:, 0].long(), lo)
+        cnt = torch.where(take, cr.gather(1, j)[:, 0].long(), cnt)
+        found |= take
+        done |= anym | (cr == 0).any(dim=1)
+        h = torch.where(done, h, (h + 1) & mask)
+    return found, lo, cnt
+
+
+def _lcp(codes, lens, text, lane, i, g, chunk: int = 1 << 18):
+    """True-code LCP of read lane[p] from i against text from g, per
+    flat candidate p: N in the read, a separator in the text and the
+    read end all stop a match.  Runs in chunks of candidates to bound
+    the (chunk, L) temporaries."""
+    L = codes.shape[1]
+    j = torch.arange(L, device=codes.device)
+    out = []
+    for s in range(0, lane.numel(), chunk):
+        ln, ii, gg = lane[s:s + chunk], i[s:s + chunk], g[s:s + chunk]
+        rpos = ii[:, None] + j[None, :]
+        rc = codes[ln[:, None], rpos.clamp(max=L - 1)]
+        tc = text[(gg[:, None] + j[None, :]).clamp(max=text.shape[0] - 1)]
+        ok = (rpos < lens[ln][:, None]) & (rc < 4) & (rc == tc)
+        out.append(ok.to(torch.int32).cumprod(dim=1).sum(dim=1))
+    return torch.cat(out) if out else lane.new_zeros(0)
+
+
+def mmp_scan_reference(lanes: dict, index: TorchIndex, *, cand_cap: int,
+                       max_mmps: int, max_steps: int,
+                       skip_jump: bool = False):
+    """Plain torch version of the scan, vectorized over lanes: each round
+    probes one position in every still-active lane, and the candidates of
+    the lanes that found a k-mer with cnt <= cand_cap are flattened into
+    one list for the LCP.  Same outputs as the kernel; used by the CPU
+    path and by the on-card comparison."""
+    _check(lanes, index, cand_cap, max_mmps)
+    codes, pw = lanes["codes"], lanes["pw"]
+    lens = lanes["lens"].to(torch.int64)
+    dev = codes.device
+    B2, _ = codes.shape
+    C, M, k = cand_cap, max_mmps, index.k
+    txp = torch.zeros((B2, M * C), dtype=torch.int32, device=dev)
+    pos = torch.zeros((B2, M * C), dtype=torch.int32, device=dev)
+    vld = torch.zeros((B2, M * C), dtype=torch.bool, device=dev)
+    i = torch.zeros(B2, dtype=torch.int64, device=dev)
+    nm = torch.zeros_like(i)
+    steps = torch.zeros_like(i)
+    over = torch.zeros(B2, dtype=torch.bool, device=dev)
+    mlen = torch.zeros_like(i)
+    sa = index.sa.to(torch.int64)
+    for _ in range(max_steps):
+        act = ((i + k <= lens) & (nm < M)).nonzero()[:, 0]
+        if act.numel() == 0:
+            break
+        ia = i[act]
+        key0 = u32(pw[act, ia])
+        key1 = u32(pw[act, ia + 16]) >> (2 * (32 - k))
+        found, lo, cnt = _probe(index, key0, key1)
+        steps[act] += 1
+        over[act] |= found & (cnt > C)
+        sel = (found & (cnt <= C)).nonzero()[:, 0]
+        adv = torch.ones_like(ia)
+        if sel.numel():
+            ls, is_, cs = act[sel], ia[sel], cnt[sel]
+            own = torch.repeat_interleave(
+                torch.arange(sel.numel(), device=dev), cs)
+            start = torch.cumsum(cs, 0) - cs
+            c = torch.arange(own.numel(), device=dev) - start[own]
+            g = sa[lo[sel][own] + c]
+            lcp = _lcp(codes, lens, index.codes, ls[own], is_[own], g).long()
+            lstar = torch.full((sel.numel(),), -1, dtype=torch.int64,
+                               device=dev)
+            lstar.scatter_reduce_(0, own, lcp, reduce="amax")
+            hit = lstar >= k
+            hc = hit[own].nonzero()[:, 0]
+            if hc.numel():
+                o = own[hc]
+                lane_c = ls[o]
+                col = nm[lane_c] * C + c[hc]
+                gt = g[hc]
+                tx = index.txp_of_pos[gt].long()
+                txp[lane_c, col] = tx.to(torch.int32)
+                pos[lane_c, col] = (gt - index.txp_offsets[tx].long()
+                                    - is_[o]).to(torch.int32)
+                vld[lane_c, col] = lcp[hc] == lstar[o]
+            hl = ls[hit]
+            mlen[hl] = torch.where(nm[hl] == 0, lstar[hit], mlen[hl])
+            nm[hl] += 1
+            if skip_jump:
+                hadv = lstar + 1
+            else:
+                hadv = torch.clamp(lstar - k + 1, min=1)
+            adv[sel] = torch.where(hit, hadv, 1)
+        i[act] = ia + adv
+    meta = torch.stack([nm, over.long(), mlen, steps], dim=1)
+    return txp, pos, vld, meta.to(torch.int32)

@@ -1,0 +1,222 @@
+"""The port's main path end to end against the JAX package on the toy
+world: the mapping backend batch by batch (exact labels and counts,
+including fragments remapped by the escalation pass), and the CLI
+(`index` + `quant --dumpEq`) against sailfish_tpu.cli — identical
+eq_classes.txt, equal EM iterations, equal Name/Length/EffectiveLength,
+TPM and NumReads within rtol 1e-5 (quant.sf prints 6 significant
+digits)."""
+
+import json
+import os
+
+import numpy as np
+import pytest
+
+from sailfish_tpu import dna
+from sailfish_tpu.config import QuantOpts
+from sailfish_tpu.eqclass.classes import HashedEqClassAccumulator
+from sailfish_tpu.libformat import parse_library_format
+from sailfish_tpu.map.pipeline import DeviceMapperBackend as JaxBackend
+from sailfish_tpu_torch.map.pipeline import DeviceMapperBackend
+
+from conftest import to_batch
+
+
+@pytest.mark.parametrize("cap,cap_max", [(16, 0), (2, 16)])
+def test_backend_matches_jax(toy_world, cap, cap_max):
+    """(2, 16): the shared 100bp segment overflows C = 2, so those
+    fragments take the escalation pass at C = 16 in both packages."""
+    opts = QuantOpts(batch_size=160, hit_capacity=cap,
+                     hit_capacity_max=cap_max)
+    exp = parse_library_format("IU")
+    r1, r2, _ = toy_world["sim"](160, err_rate=0.3, seed=41)
+    b1, b2 = to_batch(r1), to_batch(r2)
+    port = DeviceMapperBackend(toy_world["idx"], opts, "cpu")
+    ref = JaxBackend(toy_world["idx"], opts)
+    bp = port.map_pe_batch(b1, b2, exp)
+    br = ref.map_pe_batch(b1, b2, exp)
+    assert (dict(zip(bp.labels, bp.label_counts.tolist()))
+            == dict(zip(br.labels, br.label_counts.tolist())))
+    for f in ("mapped", "num_joint", "unique_paired", "frag_lens",
+              "fmt_counts"):
+        np.testing.assert_array_equal(getattr(bp, f), getattr(br, f),
+                                      err_msg=f)
+    for f in ("num_fwd", "num_rc", "num_compat"):
+        assert getattr(bp, f) == getattr(br, f), f
+
+    # the hash-keyed fast path folds the same classes
+    acc_p, acc_r = HashedEqClassAccumulator(), HashedEqClassAccumulator()
+    sp = port.finish_batch_fast(port.submit_pe(b1, b2, exp), acc_p)
+    tok_r = ref.submit_pe(b1, b2, exp)
+    overflowed = int(np.asarray(tok_r[0]["scalars"])[72])
+    sr = ref.finish_batch_fast(tok_r, acc_r)
+    assert acc_p._counts == acc_r._counts
+    assert (sp.num_mapped, sp.fld_count) == (sr.num_mapped, sr.fld_count)
+    np.testing.assert_array_equal(sp.fld_hist(), sr.fld_hist())
+    assert sp.num_escalated == (overflowed if cap_max else 0)
+    assert (sp.num_escalated > 0) == bool(cap_max)
+
+
+def _write_world(toy_world, d, n=400):
+    fasta = os.path.join(d, "txps.fa")
+    with open(fasta, "w") as fh:
+        for name, s in zip(toy_world["names"], toy_world["seqs"]):
+            fh.write(f">{name}\n{dna.decode(s)}\n")
+    r1, r2, _ = toy_world["sim"](n, err_rate=0.3, seed=5)
+    paths = []
+    for m, reads in ((1, r1), (2, r2)):
+        p = os.path.join(d, f"r{m}.fq")
+        with open(p, "w") as fh:
+            for i, r in enumerate(reads):
+                s = dna.decode(r)
+                fh.write(f"@f{i}/{m}\n{s}\n+\n{'I' * len(s)}\n")
+        paths.append(p)
+    return fasta, paths
+
+
+def _done_stats(out):
+    """The `done: {...}` record of a CLI run's log file."""
+    with open(os.path.join(out, "logs", "sailfish_quant.log")) as fh:
+        lines = [ln for ln in fh if "done: " in ln]
+    return json.loads(lines[-1].split("done: ", 1)[1])
+
+
+def _read_quant_sf(path):
+    with open(path) as fh:
+        rows = [ln.rstrip("\n").split("\t") for ln in fh][1:]
+    names = [r[0] for r in rows]
+    num = np.array([[float(x) for x in r[1:]] for r in rows])
+    return names, num
+
+
+def test_cli_matches_jax_cli(toy_world, tmp_path, monkeypatch):
+    from sailfish_tpu.cli import main as jax_main
+    from sailfish_tpu_torch.cli import main as torch_main
+
+    # no persistent jax compilation cache from inside the test process
+    monkeypatch.setenv("SAILFISH_TPU_COMPILE_CACHE", "")
+    fasta, (fq1, fq2) = _write_world(toy_world, str(tmp_path))
+    outs = {}
+    for tag, main in (("jax", jax_main), ("torch", torch_main)):
+        idx = str(tmp_path / f"idx_{tag}")
+        out = str(tmp_path / f"q_{tag}")
+        assert main(["index", "-t", fasta, "-o", idx, "-k", "31"]) == 0
+        assert main(["quant", "-i", idx, "-l", "IU", "-1", fq1, "-2", fq2,
+                     "-o", out, "--dumpEq", "--batchSize", "128",
+                     "--hitCapacity", "2", "--hitCapacityMax", "16"]) == 0
+        outs[tag] = out
+    ja, to = outs["jax"], outs["torch"]
+    with open(os.path.join(ja, "aux", "eq_classes.txt")) as fh:
+        eq_j = fh.read()
+    with open(os.path.join(to, "aux", "eq_classes.txt")) as fh:
+        eq_t = fh.read()
+    assert eq_t == eq_j
+    assert int(eq_t.split("\n")[1]) > 0
+    sj, st = _done_stats(ja), _done_stats(to)
+    assert st["em_iterations"] == sj["em_iterations"]
+    assert st["num_mapped"] == sj["num_mapped"] > 0
+    names_j, qj = _read_quant_sf(os.path.join(ja, "quant.sf"))
+    names_t, qt = _read_quant_sf(os.path.join(to, "quant.sf"))
+    assert names_t == names_j
+    np.testing.assert_array_equal(qt[:, :2], qj[:, :2])
+    np.testing.assert_allclose(qt[:, 2:], qj[:, 2:], rtol=1e-5, atol=0)
+    assert abs(qt[:, 2].sum() - 1e6) < 1.0
+    with open(os.path.join(to, "aux", "meta_info.json")) as fh:
+        meta = json.load(fh)
+    assert meta["quant_timings"]["device"] == "cpu"
+    assert meta["quant_timings"]["escalated_fragments"] > 0
+    for f in ("lib_format_counts.json", "aux/fld.gz", "cmd_info.json",
+              "aux/quant_state.json"):
+        assert os.path.exists(os.path.join(to, f)), f
+
+
+def test_refimpl_backend_matches_device_backend(toy_world):
+    """The host oracle behind `--backend refimpl` folds the same classes
+    and FLD observations as the device backend (exact)."""
+    from sailfish_tpu_torch.map.pipeline import make_backend
+
+    opts = QuantOpts(hit_capacity=2, hit_capacity_max=16)
+    exp = parse_library_format("IU")
+    r1, r2, _ = toy_world["sim"](96, err_rate=0.3, seed=43)
+    b1, b2 = to_batch(r1), to_batch(r2)
+    stats, accs = {}, {}
+    for name in ("device", "refimpl"):
+        be = make_backend(toy_world["idx"], opts, "cpu", name)
+        accs[name] = be.accumulator()
+        stats[name] = be.finish_batch_fast(be.submit_pe(b1, b2, exp),
+                                           accs[name])
+    d, r = stats["device"], stats["refimpl"]
+    assert accs["refimpl"]._counts == accs["device"]._counts
+    assert len(accs["refimpl"]._counts) > 0
+    for f in ("n", "num_mapped", "sum_joint", "ub_hits", "num_fwd",
+              "num_rc", "fld_count", "num_compat"):
+        assert getattr(r, f) == getattr(d, f), f
+    np.testing.assert_array_equal(r.fmt_counts, d.fmt_counts)
+    np.testing.assert_array_equal(r.fld_hist(), d.fld_hist())
+
+
+def test_cli_refimpl_backend_matches_device(toy_world, tmp_path):
+    """`quant --backend refimpl` and the default device backend write the
+    same eq_classes.txt and quant.sf (exact; EM runs on the same device
+    over the same classes)."""
+    from sailfish_tpu_torch.cli import main as torch_main
+
+    fasta, (fq1, fq2) = _write_world(toy_world, str(tmp_path), n=200)
+    idx = str(tmp_path / "idx")
+    assert torch_main(["index", "-t", fasta, "-o", idx, "-k", "31"]) == 0
+    files = {}
+    for backend in ("device", "refimpl"):
+        out = str(tmp_path / f"q_{backend}")
+        assert torch_main(["quant", "-i", idx, "-l", "IU", "-1", fq1, "-2",
+                           fq2, "-o", out, "--dumpEq", "--backend", backend,
+                           "--hitCapacity", "2", "--hitCapacityMax",
+                           "16"]) == 0
+        with open(os.path.join(out, "aux", "meta_info.json")) as fh:
+            assert json.load(fh)["quant_timings"]["backend"] == backend
+        files[backend] = [open(os.path.join(out, f)).read()
+                          for f in ("aux/eq_classes.txt", "quant.sf")]
+    assert files["refimpl"] == files["device"]
+    assert int(files["device"][0].split("\n")[1]) > 0
+
+
+@pytest.mark.parametrize("flags", [
+    ["--biasCorrect"], ["--numBootstraps", "2"], ["--numGibbsSamples", "2"],
+    ["--resumeFromEq", "x"], ["--numShards", "2"],
+    ["--checkpointInterval", "10"],
+])
+def test_cli_refuses_flags_outside_slice(tmp_path, flags):
+    from sailfish_tpu_torch.cli import main as torch_main
+
+    with pytest.raises(SystemExit) as ei:
+        torch_main(["quant", "-i", str(tmp_path), "-l", "IU", "-1", "a.fq",
+                    "-2", "b.fq", "-o", str(tmp_path / "o"), *flags])
+    assert ei.value.code == 2
+
+
+def test_cli_refuses_single_end_and_sharded_index(tmp_path):
+    from sailfish_tpu_torch.cli import main as torch_main
+
+    with pytest.raises(SystemExit):
+        torch_main(["quant", "-i", str(tmp_path), "-l", "U", "-r", "a.fq",
+                    "-o", str(tmp_path / "o")])
+    with pytest.raises(SystemExit):
+        torch_main(["index", "-t", "x.fa", "-o", str(tmp_path / "i"),
+                    "--indexShards", "2"])
+
+
+def test_outside_slice_raises(toy_world):
+    """Reads over 128 bases and 64-bit indexes raise instead of switching
+    paths."""
+    from sailfish_tpu.index.builder import build_index
+    from sailfish_tpu_torch.index.device import TorchIndex
+
+    opts = QuantOpts(hit_capacity=16)
+    port = DeviceMapperBackend(toy_world["idx"], opts, "cpu")
+    r1, r2, _ = toy_world["sim"](8, seed=3)
+    b1, b2 = to_batch(r1, max_len=136), to_batch(r2, max_len=136)
+    with pytest.raises(NotImplementedError, match="128"):
+        port.submit_pe(b1, b2, parse_library_format("IU"))
+    big = build_index(toy_world["names"][:2], toy_world["seqs"][:2], k=31,
+                      force_big_sa=True)
+    with pytest.raises(NotImplementedError, match="big_sa"):
+        TorchIndex.from_quasi_index(big, "cpu")

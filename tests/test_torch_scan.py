@@ -1,0 +1,132 @@
+"""The port's scan (plain torch version + post-pass) against the JAX
+package's Pallas kernel (interpret mode) and XLA kernel, on the toy
+world.  Every comparison is exact."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from sailfish_tpu.config import QuantOpts
+from sailfish_tpu.map.encode import make_oriented_lanes as jax_lanes
+from sailfish_tpu.map.kernels import map_oriented_lanes as jax_map
+from sailfish_tpu.map.pallas_kernel import (
+    map_oriented_lanes_pallas,
+    prepare_pallas_text,
+)
+from sailfish_tpu.map.pipeline import DeviceMapperBackend
+from sailfish_tpu_torch.index.device import TorchIndex
+from sailfish_tpu_torch.map.encode import make_oriented_lanes
+from sailfish_tpu_torch.map.lanes import map_oriented_lanes
+from sailfish_tpu_torch.map.scan import mmp_scan, mmp_scan_reference
+
+B, L, U = 64, 56, 50   # tests/test_pallas.py shapes
+
+
+def _reads(toy_world, seed=3):
+    """Reads of 50 bases from the toy transcripts with substitution
+    errors (every 3rd) and an N base (every 7th), as test_pallas.py."""
+    rng = np.random.default_rng(seed)
+    codes = np.full((B, L), 4, np.uint8)
+    lens = np.full(B, U, np.int32)
+    for i in range(B):
+        s = toy_world["seqs"][i % len(toy_world["seqs"])]
+        p = int(rng.integers(0, len(s) - U))
+        m = s[p:p + U].copy()
+        if i % 3 == 0:
+            q = int(rng.integers(0, U))
+            m[q] = (m[q] + 1) % 4
+        if i % 7 == 0:
+            m[10] = 4
+        codes[i, :U] = m
+    return codes, lens
+
+
+def _port(toy_world, codes, lens, **kw):
+    tidx = TorchIndex.from_quasi_index(toy_world["idx"], "cpu")
+    out = map_oriented_lanes(tidx, torch.from_numpy(codes),
+                             torch.from_numpy(lens), **kw)
+    return {k: v.numpy() for k, v in out.items()}
+
+
+def _assert_same(port, ref):
+    """Exact equality at the post-pass level: valid masks, txp/pos at
+    valid slots, mlen, overflow, loci counts."""
+    va, vb = port["valid"], np.asarray(ref["valid"])
+    np.testing.assert_array_equal(va, vb)
+    for key in ("txp", "pos"):
+        np.testing.assert_array_equal(port[key][va], np.asarray(ref[key])[vb],
+                                      err_msg=key)
+    for key in ("mlen", "overflow", "num_mapped_loci"):
+        np.testing.assert_array_equal(port[key], np.asarray(ref[key]),
+                                      err_msg=key)
+
+
+# (max_steps, skip rule, candidate capacity); max_steps None = full budget
+CASES = [
+    (4, "nip", 16),
+    (None, "nip", 16),
+    (4, "jump", 16),
+    (None, "jump", 16),
+    (None, "nip", 2),
+]
+
+
+@pytest.mark.parametrize("steps,skip,cap", CASES)
+def test_scan_matches_xla_kernel(toy_world, steps, skip, cap):
+    idx = toy_world["idx"]
+    dev = DeviceMapperBackend(idx, QuantOpts())
+    codes, lens = _reads(toy_world)
+    kw = dict(cand_cap=cap, max_mmps=4, max_steps=steps or L,
+              skip_jump=(skip == "jump"))
+    lanes = jax_lanes(jnp.asarray(codes), jnp.asarray(lens),
+                      idx.prefix_bases)
+    ref = jax_map(dev.text, lanes, k=idx.k, prefix_bases=idx.prefix_bases,
+                  use_hash=True, ht_probes=dev.ht_probes,
+                  ht_bits=dev.ht_bits, **kw)
+    port = _port(toy_world, codes, lens, **kw)
+    _assert_same(port, ref)
+    if cap == 2:
+        # the toy world's shared 100bp segment puts 3 copies of its
+        # k-mers in the text: C = 2 must overflow those lanes
+        assert port["overflow"].any()
+    else:
+        assert not port["overflow"].any()
+    assert port["valid"].any()
+
+
+# one interpret-mode case (about 90 s on the CPU): the XLA comparison
+# above already covers the jump rule and the full step budget
+@pytest.mark.parametrize("steps,skip", [(4, "nip")])
+def test_scan_matches_pallas_kernel(toy_world, steps, skip):
+    idx = toy_world["idx"]
+    dev = DeviceMapperBackend(idx, QuantOpts())
+    codes, lens = _reads(toy_world)
+    pt = prepare_pallas_text(idx, cand_cap=16)
+    ref = map_oriented_lanes_pallas(
+        pt, jnp.asarray(codes), jnp.asarray(lens), k=idx.k, cand_cap=16,
+        max_mmps=4, max_steps=steps or L, ht_bits=dev.ht_bits,
+        ht_probes=dev.ht_probes, skip_jump=(skip == "jump"), interpret=True)
+    port = _port(toy_world, codes, lens, cand_cap=16, max_mmps=4,
+                 max_steps=steps or L, skip_jump=(skip == "jump"))
+    _assert_same(port, ref)
+
+
+def test_dispatch_runs_plain_version_on_cpu(toy_world):
+    """On CPU tensors `mmp_scan` is the plain version, bit for bit, and
+    launches no kernel."""
+    from sailfish_tpu_torch.map.scan import mmp_scan_cuda
+
+    tidx = TorchIndex.from_quasi_index(toy_world["idx"], "cpu")
+    codes, lens = _reads(toy_world, seed=5)
+    lanes = make_oriented_lanes(torch.from_numpy(codes),
+                                torch.from_numpy(lens))
+    before = mmp_scan_cuda.launches
+    kw = dict(cand_cap=16, max_mmps=4, max_steps=L)
+    a = mmp_scan(lanes, tidx, **kw)
+    b = mmp_scan_reference(lanes, tidx, **kw)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+    assert mmp_scan_cuda.launches == before
+    with pytest.raises(ValueError):
+        mmp_scan_cuda(lanes, tidx, **kw)
