@@ -5,31 +5,50 @@
 
 Phases (each prints its lines; any failure exits non-zero before the
 result line):
-  1. toolchain: card, power limit, nvcc, triton, kernel build time
-  2. world: a gene-family transcriptome (isoforms share exons; ~200k
+  1. toolchain: card, power limit, nvcc, triton, the build of both CUDA
+     kernels (csrc/mmp_scan.cu, csrc/ubench.cu) and of the native host
+     helpers (g++), the card's copy bandwidth
+  2. ubench: each of the 17 op-chain variants of csrc/ubench.cu against
+     its plain version at 2,048 iterations from seeded buffers (exact
+     int32 equality), then `python -m sailfish_tpu_torch.ubench --iters
+     100000` through its entry point: ns per iteration of each variant;
+     `empty` must be the fastest
+  3. world: a gene-family transcriptome (isoforms share exons; ~200k
      transcripts, ~150 Mb, numpy seed 7 — the GENCODE-scale world of
      tools/bench_gencode.py) written as FASTA and indexed with
      `python -m sailfish_tpu_torch.cli index -k 31` into .smoke_cache/
-     (reused when present); 4 batches of 65,536 paired 100 bp fragments
-     with 0.5% substitutions (seed 11) written as FASTQ
-  3. kernel vs plain: the CUDA scan and its plain torch version on the
-     same card tensors (8,192 fragments, both mates, fwd + rc lanes, an
-     N in every 7th read) at C = 64 and C = 1024 (the main and the
-     escalation pass) and at C = 2, where lanes must overflow; equal
-     after the post-pass; both timed
-  4. oracle: eq-class labels and counts of the first 2,048 fragments
-     from the port's device backend equal its `--backend refimpl`
-     backend (the numpy reference mapper), at --hitCapacity 64 and at
-     --hitCapacity 2, where fragments take the escalation pass
-  5. stages: per-batch ms of host pack + copy, device work and host fold
+     (reused when present; the native SA-IS is required at this scale);
+     2 batches of 65,536 paired 100 bp fragments with 0.5% substitutions
+     (seed 11) and 1 batch of 65,536 paired 152 bp fragments (seed 13)
+     written as FASTQ
+  4. kernel vs plain: the CUDA scan and its plain torch version on the
+     same card tensors, equal after the post-pass, both timed, with the
+     least time the card could take for the same bytes and operations.
+     First the three lane blocks that the runs of phase 7 give the
+     kernel, whole and unchanged, at C = 64: a batch of 65,536 paired
+     100 bp fragments (both mates, fwd + rc: 262,144 lanes, L = 104),
+     its first mates as a single-end batch (131,072 lanes) and a batch
+     of paired 152 bp fragments (262,144 lanes, L = 152).  Then a
+     sample of 8,192 fragments with an N in every 7th read: C = 64,
+     C = 1024 (the escalation pass) and C = 2, where lanes must
+     overflow, at L = 104, and C = 64 at L = 152 and L = 304
+  5. oracle: eq-class labels and counts of a sample of fragments from
+     the port's device backend equal its `--backend refimpl` backend
+     (the numpy reference mapper): paired 100 bp at --hitCapacity 64 and
+     at --hitCapacity 2, where fragments take the escalation pass;
+     single-end 100 bp reads (-l U); paired 152 bp
+  6. stages: per-batch ms of host pack + copy, device work and host fold
      at the main path's batch size (a synchronize closes each stage),
      then the same batches pipelined as quant runs them under
      torch.profiler: device busy and idle share, top kernels
-  6. end to end: the port's `quant -l IU --hitCapacity 64
-     --hitCapacityMax 1024 --dumpEq` through its CLI entry point, with
-     the kernel launch counter reset before and read after; outputs
-     checked (TPM sums to 1e6); EM rerun on the CPU must agree
-  7. the kernel table line, the nvidia-smi line, then the result line
+  7. end to end, each through the CLI entry point with the kernels'
+     launch counters reset before and read after, outputs checked (TPM
+     sums to 1e6, the run was on cuda): `quant -l IU --hitCapacity 64
+     --hitCapacityMax 1024 --dumpEq` on the paired 100 bp reads (EM
+     rerun on the CPU must agree), `quant -l U -r` on their first mates
+     as a single-end library, and `quant -l IU` on the paired 152 bp
+     reads
+  8. the kernel table line, the nvidia-smi line, then the result line
 
 It imports only the port (sailfish_tpu_torch), no jax, and needs the
 repository beside it.
@@ -51,8 +70,17 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 CACHE = os.path.join(ROOT, ".smoke_cache")
 READ_LEN = 100
 ERR = 0.005
+LONG_READ_LEN = 152
 KERNEL_SRC = "sailfish_tpu_torch/csrc/mmp_scan.cu"
 TPU_KERNEL = "sailfish_tpu/map/pallas_kernel.py:133"
+UBENCH_SRC = "sailfish_tpu_torch/csrc/ubench.cu"
+UBENCH_TPU_KERNEL = "tools/ubench_pallas.py:37"
+UBENCH_CHECK_ITERS = 2048
+UBENCH_ITERS = 100_000
+# published peaks of one H100 SXM: HBM bytes/s, and float32 operations/s
+# outside the tensor cores (the rate taken for the kernels' integer work)
+PEAK_BYTES_S = 3.35e12
+PEAK_OPS_S = 67e12
 T0 = time.time()
 
 
@@ -109,17 +137,18 @@ def build_transcriptome(rng, txps: int, bases: float):
     return names, seqs
 
 
-def simulate_batch(rng, concat, offs, lens, n):
+def simulate_batch(rng, concat, offs, lens, n, read_len=READ_LEN):
     """n fragments: transcript uniform, length ~N(250, 25) clipped to
-    [110, 600] and to the transcript, mate 2 reverse-complemented,
-    substitutions at rate ERR (tools/bench_gencode.py simulate_batch)."""
+    [read_len + 10, 600] and to the transcript, mate 2
+    reverse-complemented, substitutions at rate ERR
+    (tools/bench_gencode.py simulate_batch)."""
     t = rng.integers(0, len(lens), n)
-    fl = np.clip(rng.normal(250, 25, n).astype(np.int64), READ_LEN + 10, 600)
+    fl = np.clip(rng.normal(250, 25, n).astype(np.int64), read_len + 10, 600)
     fl = np.minimum(fl, lens[t])
     p = (rng.random(n) * (lens[t] - fl + 1)).astype(np.int64)
     start = offs[t] + p
-    m1 = concat[start[:, None] + np.arange(READ_LEN)]
-    i2 = start[:, None] + (fl[:, None] - READ_LEN) + np.arange(READ_LEN)
+    m1 = concat[start[:, None] + np.arange(read_len)]
+    i2 = start[:, None] + (fl[:, None] - read_len) + np.arange(read_len)
     m2 = (3 - concat[i2][:, ::-1]).astype(np.uint8)
     for m in (m1, m2):
         mask = rng.random(m.shape) < ERR
@@ -149,6 +178,7 @@ def write_fastq(path, reads):
 # ---------------------------------------------------------------- phases
 def phase_toolchain(torch):
     from sailfish_tpu_torch import _ext
+    from sailfish_tpu_torch.io.native import native_sais_available
 
     name = torch.cuda.get_device_name(0)
     say(f"device: {name} | count={torch.cuda.device_count()} | torch "
@@ -163,16 +193,164 @@ def phase_toolchain(torch):
         say(f"triton: does not import ({e})")
     t0 = time.time()
     kl = _ext.load()
-    regs = [ln.strip() for ln in kl.build_log.splitlines()
-            if "registers" in ln]
-    say(f"kernel build: {kl.build_seconds:.2f}s nvcc "
-        f"({time.time() - t0:.2f}s with load) -> {kl.path.name}; "
-        f"ptxas: {regs[0] if regs else 'n/a'}")
+    require(kl.lib.sf_ubench_num_variants() == 17,
+            "csrc/ubench.cu does not hold 17 variants")
+    regs = [int(ln.split("Used ")[1].split()[0])
+            for ln in kl.build_log.splitlines() if "Used " in ln]
+    spills = [ln for ln in kl.build_log.splitlines()
+              if "spill stores" in ln and "0 bytes spill stores" not in ln]
+    say(f"kernel build: {len(_ext.SOURCES)} sources, {kl.build_seconds:.2f}s "
+        f"nvcc in parallel ({time.time() - t0:.2f}s with load) -> "
+        f"{kl.path.name}; ptxas: {len(regs)} kernels, registers "
+        f"{min(regs, default=0)}-{max(regs, default=0)}, "
+        f"{len(spills)} with spills")
+    t0 = time.time()
+    native = native_sais_available()
+    say(f"host helpers (g++): {'built and loaded' if native else 'NOT built'}"
+        f" in {time.time() - t0:.2f}s")
     return name
 
 
+def phase_copy_bandwidth(torch, card) -> float:
+    """Device-to-device copy of 1 GiB, bytes read plus bytes written per
+    second: the memory rate this card reaches, beside the published
+    peak that the bounds use."""
+    src = torch.empty(1 << 30, dtype=torch.uint8, device="cuda")
+    dst = torch.empty_like(src)
+    ms = _time_ms(torch, lambda: dst.copy_(src), 10)
+    rate = 2 * src.numel() / (ms / 1e3)
+    say(f"copy bandwidth: {rate / 1e12:.3f} TB/s (1 GiB device-to-device "
+        f"copy, {ms:.3f} ms; published peak {PEAK_BYTES_S / 1e12:.2f} TB/s) "
+        f"[{card}]")
+    return rate
+
+
+# Work of each ubench variant, for the bound: the small buffers it reads
+# (once each, whatever the iteration count), the bytes one iteration
+# asks of each large buffer, and the operations of one iteration,
+# counted by hand from the chain as ubench.py's docstring writes it.
+# "walk" stands for the text bytes the 32 threads compare, which depend
+# on the data (see ubench_bound).
+_UBENCH_WORK = {
+    "empty": ((), {}, 1),
+    "roll16x4": (("tile",), {}, 96),
+    "roll1x4": (("pair",), {}, 6),
+    "store6": (("tile", "pair"), {}, 14),
+    "alignchain": (("read",), {"sa": 32 * 4, "text": "walk"}, 12),
+    "lcp": (("al",), {}, 40),
+    "when8_true": ((), {}, 17),
+    "when8_false": ((), {}, 9),
+    "when8_smem": ((), {}, 25),
+    "select8": ((), {}, 18),
+    "while0": ((), {}, 3),
+    "smem16": (("xs",), {}, 33),
+    "dma16": ((), {"hbm": 16 * 128 * 4}, 20),
+    "dma16x4": ((), {"hbm": 4 * 16 * 128 * 4}, 80),
+    "bucket64": ((), {"table": 64}, 12),
+    "sa_window": ((), {"sa": 64 * 4}, 16),
+    "text_read": (("read",), {"text": "walk"}, 12),
+}
+
+
+def ubench_bound(variant, iters, result, bufs):
+    """(bytes, operations) that `iters` iterations of a variant from
+    acc = 0 must move and do.  A buffer's bytes count once however often
+    the chain returns to them: a variant asks of a large buffer
+    min(bytes per iteration * iters, the buffer's size).  A walk variant
+    adds the longest walk plus one to the accumulator, so `result` is
+    the bytes its longest-walking thread compared; each of the other 31
+    threads compares at least one byte per iteration.  Operations per
+    compared byte: 6, as in the scan's bound."""
+    small, large, ops = _UBENCH_WORK[variant]
+    size = {k: v.numel() * v.element_size() for k, v in bufs.items()}
+    walk = result + 31 * iters
+    nbytes = 4 + sum(size[k] for k in small)
+    nops = ops * iters
+    for name, per_iter in large.items():
+        if per_iter == "walk":
+            nbytes += min(walk, size[name])
+            nops += 6 * walk
+        else:
+            nbytes += min(per_iter * iters, size[name])
+    return nbytes, nops
+
+
+def phase_ubench(torch, card):
+    """The op-chain microbenchmark kernel against its plain version, then
+    its entry point, which is that tool's main path."""
+    import contextlib
+    import io
+
+    from sailfish_tpu_torch import ubench
+
+    t0 = time.time()
+    cpu = ubench.make_buffers(0)
+    gpu = {k: v.cuda() for k, v in cpu.items()}
+    say(f"ubench buffers: seed 0, "
+        f"{sum(v.numel() * v.element_size() for v in cpu.values()) / 2**20:.0f}"
+        f" MiB (table {cpu['table'].shape[0]} rows, suffix array "
+        f"{cpu['sa'].numel()}, text {cpu['text'].numel()} bytes) in "
+        f"{time.time() - t0:.1f}s")
+    err, ms, plain_ms, nbytes, nops = 0, 0.0, 0.0, 0, 0
+    for v in ubench.VARIANTS:
+        t0 = time.perf_counter()
+        want = ubench.ubench_reference(v, UBENCH_CHECK_ITERS, 0, cpu)
+        plain_ms += 1e3 * (time.perf_counter() - t0)
+        got = int(ubench.ubench_cuda(v, UBENCH_CHECK_ITERS, 0, gpu).item())
+        err = max(err, abs(got - want))
+        require(got == want, f"ubench {v}: kernel {got} != plain {want} "
+                f"after {UBENCH_CHECK_ITERS} iterations")
+        ms += ubench.time_variant(v, UBENCH_CHECK_ITERS, 0, gpu) \
+            * UBENCH_CHECK_ITERS / 1e6
+        b, o = ubench_bound(v, UBENCH_CHECK_ITERS, want, cpu)
+        nbytes, nops = nbytes + b, nops + o
+    bound = bound_ms(nbytes, nops)
+    say(f"ubench kernel vs plain: all {len(ubench.VARIANTS)} variants "
+        f"equal (exact int32) after {UBENCH_CHECK_ITERS} iterations; "
+        f"kernel {ms:.3f} ms, plain {plain_ms:.1f} ms for the 17 together; "
+        f"bound {bound['bound_ms']:.5f} ms by {bound['bound_by']} "
+        f"({nbytes} bytes counted once per buffer, {nops} operations) "
+        f"[{card}]")
+    del gpu
+    torch.cuda.empty_cache()
+
+    # the tool's main path, through its entry point
+    ubench.ubench_cuda.launches = 0
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = ubench.main(["--iters", str(UBENCH_ITERS)])
+    launches = ubench.ubench_cuda.launches
+    require(rc == 0, f"ubench exited {rc}")
+    ns = {}
+    for ln in buf.getvalue().splitlines():
+        if ln.endswith("ns/iter"):
+            ns[ln.split()[0]] = float(ln.split()[1])
+            say(f"ubench {ln} [{card}]")
+    require(set(ns) == set(ubench.VARIANTS), "ubench printed "
+            f"{sorted(ns)}, not the 17 variants")
+    require(launches >= len(ubench.VARIANTS),
+            f"the ubench entry point launched its kernel {launches} times")
+    slow = [v for v in ubench.VARIANTS
+            if v != "empty" and not ns[v] > 1.02 * ns["empty"]]
+    require(not slow, f"ubench: {slow} take no longer than `empty` "
+            f"({ns['empty']} ns/iter): a chain was folded away")
+    return {"name": "ubench", "route": "cuda", "source": UBENCH_SRC,
+            "replaces": UBENCH_TPU_KERNEL, "launches": launches,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bound,
+            "library_ms": None, "iters": UBENCH_CHECK_ITERS,
+            "ns_per_iter_at_100000": ns}
+
+
+def bound_ms(nbytes: float, nops: float) -> dict:
+    """The least time the card could take: the larger of bytes over the
+    published memory rate and operations over the published rate."""
+    tb, to = 1e3 * nbytes / PEAK_BYTES_S, 1e3 * nops / PEAK_OPS_S
+    return {"bound_ms": max(tb, to),
+            "bound_by": "bytes" if tb >= to else "operations"}
+
+
 def phase_world(args, cli):
-    from sailfish_tpu_torch.host import native_sais_available
+    from sailfish_tpu_torch.io.native import native_sais_available
 
     t0 = time.time()
     names, seqs = build_transcriptome(np.random.default_rng(7), args.txps,
@@ -196,38 +374,55 @@ def phase_world(args, cli):
     require(cli.main(["index", "-t", fasta, "-o", idx_dir, "-k", "31"]) == 0,
             "index build failed")
     say(f"index: {'built' if fresh else 'reused'} in "
-        f"{time.time() - t0:.1f}s | native SA-IS: "
-        f"{'used' if native else 'not available (numpy fallback)'}")
+        f"{time.time() - t0:.1f}s | suffix array: "
+        f"{'native SA-IS' if native else 'numpy prefix doubling'}")
+    require(native or lens.sum() < 50e6, "the native SA-IS did not build; "
+            "the numpy fallback is too slow for a world of this size")
     rng = np.random.default_rng(11)
     batches = [simulate_batch(rng, concat, offs[:-1], lens, args.batch)
                for _ in range(args.batches)]
-    return idx_dir, wdir, batches
+    long_batch = simulate_batch(np.random.default_rng(13), concat,
+                                offs[:-1], lens, args.batch, LONG_READ_LEN)
+    # reads of 304 bases for the kernel comparison: cut from the
+    # concatenated text (most span a transcript boundary), with
+    # substitutions; the second block reverse-complemented
+    r304 = np.random.default_rng(17)
+    starts = r304.integers(0, len(concat) - 304, (2, args.kernel_frags))
+    xl = [concat[st[:, None] + np.arange(304)] for st in starts]
+    for m in xl:
+        mask = r304.random(m.shape) < ERR
+        m[mask] = (m[mask] + r304.integers(1, 4, mask.sum())) % 4
+    xl[1] = (3 - xl[1][:, ::-1]).astype(np.uint8)
+    return idx_dir, wdir, batches, long_batch, tuple(xl)
 
 
 def _padded(m):
-    """(n, READ_LEN) codes -> (n, L) padded with code 4, L a multiple
+    """(n, read_len) codes -> (n, L) padded with code 4, L a multiple
     of 8 (the FASTQ reader's batch layout)."""
-    L = (READ_LEN + 7) // 8 * 8
+    L = (m.shape[1] + 7) // 8 * 8
     codes = np.full((m.shape[0], L), 4, np.uint8)
-    codes[:, :READ_LEN] = m
+    codes[:, :m.shape[1]] = m
     return codes
 
 
 def _fastq_batch(m):
-    from sailfish_tpu_torch.host import FastqBatch
+    from sailfish_tpu_torch.io.fastq import FastqBatch
 
-    return FastqBatch(_padded(m), np.full(m.shape[0], READ_LEN, np.int32))
+    return FastqBatch(_padded(m), np.full(m.shape[0], m.shape[1], np.int32))
 
 
-def _lanes_for(torch, c1, c2, dev):
-    """Both mates of the fragments as one lane block, with an N (code 4)
-    at base 37 of every 7th read: an N hashes as A in the probe key but
-    ends a match in the LCP, so these lanes hold the kernel to both."""
+def _lanes_for(torch, mates, dev, with_n):
+    """The mates of the fragments as one lane block, as the backend
+    lays it out (rows [m1; m2] x [fwd; rc], or [m; fwd, rc] for a
+    single-end batch).  `with_n` puts an N (code 4) at base 37 of every
+    7th read: an N hashes as A in the probe key but ends a match in the
+    LCP, so such lanes hold the kernel to both."""
     from sailfish_tpu_torch.map.encode import make_oriented_lanes
 
-    codes = np.concatenate([_padded(c1), _padded(c2)])
-    codes[::7, 37] = 4
-    lens = np.full(codes.shape[0], READ_LEN, np.int32)
+    codes = np.concatenate([_padded(m) for m in mates])
+    if with_n:
+        codes[::7, 37] = 4
+    lens = np.full(codes.shape[0], mates[0].shape[1], np.int32)
     return make_oriented_lanes(torch.from_numpy(codes).to(dev),
                                torch.from_numpy(lens).to(dev)), codes.shape[1]
 
@@ -245,96 +440,142 @@ def _time_ms(torch, fn, reps):
     return a.elapsed_time(b) / reps
 
 
-def phase_kernel_vs_plain(torch, tidx, batch, n_frags, card):
+def scan_bound(lanes, meta, work, C, M):
+    """Least time for one scan call on these inputs.  Bytes that must
+    move: per lane L code bytes, 4 L packed-word bytes, its length and
+    its 16 bytes of meta; 64 bytes per table row read; 4 bytes of suffix
+    array and the compared text bytes per candidate; and the M * C slots
+    of 9 bytes per lane that the wrapper zero-fills.  Operations: about
+    40 per probed position, 10 per candidate, 6 per compared byte."""
+    n, L = lanes["codes"].shape
+    steps = int(meta[:, 3].sum())
+    nbytes = (n * (5 * L + 4 + 16) + 64 * work["buckets"]
+              + 4 * work["candidates"] + work["text_bytes"]
+              + n * M * C * 9)
+    nops = 40 * steps + 10 * work["candidates"] + 6 * work["text_bytes"]
+    return bound_ms(nbytes, nops)
+
+
+def phase_kernel_vs_plain(torch, tidx, tag, mates, caps, card, copy_rate,
+                          with_n):
+    """The CUDA scan against its plain version on the lanes of `mates`
+    (one or two (n, read_len) code blocks) at each capacity of `caps`.
+    Returns {"<tag>_L<L>_C<C>": readings}."""
     from sailfish_tpu_torch.map.postpass import intersect_sort
     from sailfish_tpu_torch.map.scan import mmp_scan_cuda, mmp_scan_reference
 
     dev = tidx.device
-    c1, c2 = batch[0][:n_frags], batch[1][:n_frags]
-    lanes, L = _lanes_for(torch, c1, c2, dev)
+    n_frags = mates[0].shape[0]
+    lanes, L = _lanes_for(torch, mates, dev, with_n)
     n_lanes = lanes["codes"].shape[0]
     # lanes whose read holds an N: rows of every 7th read, fwd and rc
     has_n = (lanes["codes"] == 4).logical_and(
         torch.arange(L, device=dev)[None, :] < lanes["lens"][:, None]
     ).any(1)
     out = {}
-    # 64: the main pass; 1024: the escalation pass; 2: a capacity that
-    # the gene families overflow, so the kernel's cnt > C branch is held
-    # against the plain version too
-    for C in (64, 1024, 2):
+    for C in caps:
         kw = dict(cand_cap=C, max_mmps=4, max_steps=L)
+        work = {}
         k = mmp_scan_cuda(lanes, tidx, **kw)
-        p = mmp_scan_reference(lanes, tidx, **kw)
+        p = mmp_scan_reference(lanes, tidx, work=work, **kw)
         torch.cuda.synchronize()
         ks = intersect_sort(*k[:3], k[3][:, 0], C=C, M=4)
         ps = intersect_sort(*p[:3], p[3][:, 0], C=C, M=4)
         err = 0
-        require(torch.equal(ks[2], ps[2]), f"C={C}: valid masks differ")
+        require(torch.equal(ks[2], ps[2]),
+                f"L={L} C={C}: valid masks differ")
         v = ps[2]
         for a, b in ((ks[0][v], ps[0][v]), (ks[1][v], ps[1][v]),
-                     (k[3][:, 1:3], p[3][:, 1:3]),
-                     (ks[2].sum(1), ps[2].sum(1))):
+                     (k[3], p[3]), (ks[2].sum(1), ps[2].sum(1))):
             if a.numel():
                 err = max(err, int((a.long() - b.long()).abs().max()))
-        require(err == 0, f"C={C}: kernel and plain version differ "
+        require(err == 0, f"L={L} C={C}: kernel and plain version differ "
                 f"(max abs err {err})")
         raw_equal = all(torch.equal(x, y) for x, y in zip(k, p))
+        mapped = int((v.sum(1) > 0).sum())
+        del ks, ps, p, v
         ms = _time_ms(torch, lambda: mmp_scan_cuda(lanes, tidx, **kw), 5)
         plain_ms = _time_ms(
             torch, lambda: mmp_scan_reference(lanes, tidx, **kw), 1)
+        bound = scan_bound(lanes, k[3], work, C, 4)
         over = k[3][:, 1] != 0
         nover, nover_n = int(over.sum()), int((over & has_n).sum())
         if C == 2:
             require(nover > 0, "C=2: no lane overflowed")
-        say(f"kernel vs plain C={C}: {n_lanes} lanes ({n_frags} fragments "
-            f"x 2 mates x fwd/rc; {int(has_n.sum())} lanes with an N), "
-            f"equal after the post-pass (raw slots equal: {raw_equal}); "
-            f"overflow lanes {nover} ({nover_n} with an N), mapped lanes "
-            f"{int((v.sum(1) > 0).sum())}; kernel {ms:.3f} ms, plain "
-            f"{plain_ms:.3f} ms [{card}]")
-        out[C] = {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err}
+        say(f"kernel vs plain {tag} L={L} C={C}: {n_lanes} lanes ({n_frags} "
+            f"reads x {len(mates)} mates x fwd/rc; {int(has_n.sum())} lanes "
+            f"with an N), equal after the post-pass, meta equal (raw slots "
+            f"equal: {raw_equal}); overflow lanes {nover} ({nover_n} with "
+            f"an N), mapped lanes {mapped}; probed "
+            f"positions {int(k[3][:, 3].sum())}, table rows "
+            f"{work['buckets']}, candidates {work['candidates']}, text "
+            f"bytes {work['text_bytes']}; kernel {ms:.3f} ms, plain "
+            f"{plain_ms:.3f} ms, bound {bound['bound_ms']:.4f} ms by "
+            f"{bound['bound_by']} at the published peak "
+            f"({bound['bound_ms'] * PEAK_BYTES_S / copy_rate:.4f} ms at "
+            f"the measured copy rate) [{card}]")
+        out[f"{tag}_L{L}_C{C}"] = {
+            "lanes": n_lanes, "ms": ms, "plain_ms": plain_ms,
+            "max_abs_err": err, **bound}
+        del k
+        torch.cuda.empty_cache()
     return out
 
 
-def phase_oracle(torch, index, tidx, batch, n_frags):
-    from sailfish_tpu_torch.host import QuantOpts, parse_library_format
+def phase_oracle(torch, index, tidx, mates, lib, caps):
+    """Eq classes of a sample from the device backend against the
+    refimpl backend.  `mates` is (m1, m2) for a paired library or (m,)
+    for a single-end one; `caps` the --hitCapacity values to run."""
+    from sailfish_tpu_torch.config import QuantOpts
+    from sailfish_tpu_torch.libformat import parse_library_format
     from sailfish_tpu_torch.map.pipeline import (
         DeviceMapperBackend,
         RefMapperBackend,
     )
 
-    exp = parse_library_format("IU")
-    b1, b2 = (_fastq_batch(m[:n_frags]) for m in batch)
+    exp = parse_library_format(lib)
+    bs = tuple(_fastq_batch(m) for m in mates)
+    n, rl = mates[0].shape
+    what = (f"{n} paired {rl} bp fragments" if len(bs) == 2
+            else f"{n} single-end {rl} bp reads")
+
+    def run(be):
+        return be.submit_pe(*bs, exp) if len(bs) == 2 \
+            else be.submit_se(*bs, exp)
+
     # C = 64 is the main pass; C = 2 overflows every multi-isoform seed
     # and sends those fragments through the escalation pass at 1024 —
     # both must give the oracle's classes (its envelope is 1024 either way)
     ports = {}
-    for cap in (64, 2):
+    for cap in caps:
         opts = QuantOpts(hit_capacity=cap, hit_capacity_max=1024)
         port = DeviceMapperBackend(index, opts, tidx.device, tindex=tidx)
         t0 = time.time()
-        tok = port.submit_pe(b1, b2, exp)
+        tok = run(port)
         escalated = int(tok[0]["scalars"][72])
         br = port.finish_batch(tok)
         ports[cap] = (br, escalated, time.time() - t0)
     t0 = time.time()
     oracle = RefMapperBackend(index, QuantOpts(hit_capacity=64,
                                                hit_capacity_max=1024))
-    ref_br = oracle.map_pe_batch(b1, b2, exp)
+    ref_br = oracle.finish_batch(run(oracle))
     ref = dict(zip(ref_br.labels, ref_br.label_counts.tolist()))
     t_ref = time.time() - t0
+    require(int(ref_br.mapped.sum()) > 0, f"oracle -l {lib}: nothing mapped")
     for cap, (br, escalated, t_port) in ports.items():
         got = dict(zip(br.labels, br.label_counts.tolist()))
-        require(got == ref, f"--hitCapacity {cap}: eq classes differ from "
-                f"the oracle: {len(set(got.items()) ^ set(ref.items()))} "
-                "(label, count) pairs")
+        require(got == ref, f"-l {lib} --hitCapacity {cap}: eq classes "
+                f"differ from the oracle: "
+                f"{len(set(got.items()) ^ set(ref.items()))} (label, count) "
+                "pairs")
         require(np.array_equal(br.mapped, ref_br.mapped),
-                f"--hitCapacity {cap}: mapped flags differ")
-        say(f"oracle: {n_frags} fragments at --hitCapacity {cap} "
+                f"-l {lib} --hitCapacity {cap}: mapped flags differ")
+        say(f"oracle -l {lib}: {what} at --hitCapacity {cap} "
             f"--hitCapacityMax 1024 ({escalated} escalated): {len(ref)} eq "
             f"classes, {int(ref_br.mapped.sum())} mapped, identical to the "
             f"refimpl backend (port {t_port:.2f}s, oracle {t_ref:.1f}s)")
-    require(ports[2][1] > 0, "the C = 2 pass escalated no fragment")
+    if 2 in ports:
+        require(ports[2][1] > 0, "the C = 2 pass escalated no fragment")
 
 
 def _device_us(evt) -> float:
@@ -347,7 +588,8 @@ def phase_stages(torch, index, tidx, batches, card):
     closes each stage with a synchronize; pass 2 runs the batches as
     quant does (one-deep pipeline, no extra syncs) under torch.profiler,
     which gives the device's busy time against the wall time."""
-    from sailfish_tpu_torch.host import QuantOpts, parse_library_format
+    from sailfish_tpu_torch.config import QuantOpts
+    from sailfish_tpu_torch.libformat import parse_library_format
     from sailfish_tpu_torch.map.pipeline import DeviceMapperBackend
 
     exp = parse_library_format("IU")
@@ -411,8 +653,9 @@ def phase_stages(torch, index, tidx, batches, card):
     if not evts:
         say("profile: not measured (torch.profiler recorded no device "
             "time)")
-        return
-    scan_us = sum(_device_us(e) for e in evts if "mmp_scan" in e.key)
+        return None
+    scan = [e for e in evts if "mmp_scan" in e.key]
+    scan_us = sum(_device_us(e) for e in scan)
     say(f"profile: {len(fq)} batches pipelined as quant runs them: wall "
         f"{wall_us / 1e3:.3f} ms under the profiler, device busy "
         f"{busy_us / 1e3:.3f} ms ({100 * busy_us / wall_us:.1f}%, idle "
@@ -422,29 +665,38 @@ def phase_stages(torch, index, tidx, batches, card):
     for e in evts[:8]:
         say(f"profile kernel: {_device_us(e) / 1e3:9.3f} ms  x{e.count:<5d} "
             f"{e.key[:90]}")
+    # the scan kernel alone, without the wrapper's zero-fill
+    return scan_us / 1e3 / max(sum(e.count for e in scan), 1)
 
 
-def phase_end_to_end(torch, cli, wdir, idx_dir, batches, batch, card):
-    from sailfish_tpu_torch.host import read_eq_classes
+def phase_end_to_end(torch, cli, wdir, idx_dir, tag, lib, mates, batch,
+                     card, em_check=False):
+    """One `quant` run through the CLI entry point on the reads of
+    `mates` ((m1, m2) paired, (m,) single-end), with the scan kernel's
+    launch count reset before and read after; outputs checked."""
+    from sailfish_tpu_torch.eqclass.io import read_eq_classes
     from sailfish_tpu_torch.infer.em import run_em
     from sailfish_tpu_torch.map.scan import mmp_scan_cuda
 
-    r1 = os.path.join(wdir, "reads_1.fq")
-    r2 = os.path.join(wdir, "reads_2.fq")
-    write_fastq(r1, np.concatenate([b[0] for b in batches]))
-    write_fastq(r2, np.concatenate([b[1] for b in batches]))
-    n = sum(b[0].shape[0] for b in batches)
-    out = os.path.join(wdir, "quant")
+    paths = []
+    for i, m in enumerate(mates, 1):
+        paths.append(os.path.join(wdir, f"reads_{tag}_{i}.fq"))
+        write_fastq(paths[-1], m)
+    n, rl = mates[0].shape
+    reads = ["-1", paths[0], "-2", paths[1]] if len(mates) == 2 \
+        else ["-r", paths[0]]
+    out = os.path.join(wdir, f"quant_{tag}")
     shutil.rmtree(out, ignore_errors=True)
     mmp_scan_cuda.launches = 0
     t0 = time.time()
-    rc = cli.main(["quant", "-i", idx_dir, "-l", "IU", "-1", r1, "-2", r2,
+    rc = cli.main(["quant", "-i", idx_dir, "-l", lib, *reads,
                    "-o", out, "--hitCapacity", "64", "--hitCapacityMax",
                    "1024", "--dumpEq", "--batchSize", str(batch)])
     wall = time.time() - t0
     launches = mmp_scan_cuda.launches
-    require(rc == 0, f"quant exited {rc}")
-    require(launches > 0, "the main path launched the scan kernel 0 times")
+    require(rc == 0, f"quant -l {lib} exited {rc}")
+    require(launches > 0, f"quant -l {lib} ({tag}) launched the scan "
+            "kernel 0 times")
 
     with open(os.path.join(out, "aux", "meta_info.json")) as fh:
         meta = json.load(fh)
@@ -456,6 +708,8 @@ def phase_end_to_end(torch, cli, wdir, idx_dir, batches, batch, card):
     require(len(rows) > 0 and np.isfinite(vals).all(), "quant.sf malformed")
     tpm = vals[:, 2].sum()
     require(abs(tpm - 1e6) <= 1.0, f"TPM sums to {tpm}")
+    require(meta["num_mapped"] > 0.5 * n, f"only {meta['num_mapped']} of "
+            f"{n} mapped")
     require(abs(vals[:, 3].sum() - meta["num_mapped"])
             <= 1e-3 * meta["num_mapped"] + 1, "NumReads != mapped")
     eq_path = os.path.join(out, "aux", "eq_classes.txt")
@@ -464,17 +718,24 @@ def phase_end_to_end(torch, cli, wdir, idx_dir, batches, batch, card):
     bms = qt["batch_ms"]
     steady = (f"{batch * (len(bms) - 1) / (sum(bms[1:]) / 1e3):.0f} reads/s "
               "after the first batch" if len(bms) > 1 else "one batch")
-    say(f"quant: {n} fragments in {len(bms)} batches, mapping rate "
+    kind = (f"paired {rl} bp fragments" if len(mates) == 2
+            else f"single-end {rl} bp reads")
+    say(f"quant -l {lib} ({tag}): {n} {kind} in {len(bms)} batches, "
+        f"mapping rate "
         f"{100.0 * meta['num_mapped'] / meta['num_processed']:.2f}%, "
         f"{eq.num_classes} eq classes, {qt['escalated_fragments']} "
         f"fragments escalated to C=1024, kernel launches {launches}, "
-        f"TPM sum {tpm:.3f}, CLI wall {wall:.1f}s [{card}]")
-    say(f"quant batches: ms {bms} | {n / qt['mapping_seconds']:.0f} "
-        f"reads/s over the mapping loop, {steady} [{card}]")
-    say(f"quant EM: {qt['em_iterations']} iterations in "
+        f"TPM sum {tpm:.3f}, on {qt['device']}, CLI wall {wall:.1f}s "
+        f"[{card}]")
+    say(f"quant -l {lib} ({tag}) batches: ms {bms} | "
+        f"{n / qt['mapping_seconds']:.0f} reads/s over the mapping loop, "
+        f"{steady} [{card}]")
+    say(f"quant -l {lib} ({tag}) EM: {qt['em_iterations']} iterations in "
         f"{qt['inference_seconds']:.3f}s "
         f"({qt['em_iterations'] / max(qt['inference_seconds'], 1e-9):.1f} "
         f"iterations/s, float64) [{card}]")
+    if not em_check:
+        return launches
 
     # the EM on the card against the same EM on the CPU (torch)
     eff = vals[:, 1]
@@ -501,7 +762,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--txps", type=int, default=200_000)
     ap.add_argument("--bases", type=float, default=150e6)
-    ap.add_argument("--batches", type=int, default=4)
+    ap.add_argument("--batches", type=int, default=2)
     ap.add_argument("--batch", type=int, default=65536)
     ap.add_argument("--kernel-frags", type=int, default=8192)
     ap.add_argument("--oracle-frags", type=int, default=2048)
@@ -516,16 +777,19 @@ def main(argv=None) -> int:
     sys.path.insert(0, ROOT)
     try:
         from sailfish_tpu_torch import cli
-        from sailfish_tpu_torch.host import load_index
+        from sailfish_tpu_torch.index.builder import load_index
         from sailfish_tpu_torch.index.device import TorchIndex
     except ImportError as e:
         print(f"chip_smoke: the repository is not beside this script "
               f"({e})", file=sys.stderr)
         return 1
     try:
-        card = phase_toolchain(torch)
+        phase_toolchain(torch)
         smi = nvidia_smi_line()
-        idx_dir, wdir, batches = phase_world(args, cli)
+        copy_rate = phase_copy_bandwidth(torch, smi)
+        kernels = [phase_ubench(torch, smi)]
+        note("ubench done")
+        idx_dir, wdir, batches, long_batch, xl = phase_world(args, cli)
         note("world ready")
         t0 = time.time()
         index = load_index(idx_dir)
@@ -533,30 +797,70 @@ def main(argv=None) -> int:
         say(f"index on card: {tidx.n_text} text positions, 2^"
             f"{tidx.ht_bits} k-mer buckets, probe chain <= "
             f"{tidx.ht_probes} (load + upload {time.time() - t0:.1f}s)")
-        kv = phase_kernel_vs_plain(torch, tidx, batches[0],
-                                   args.kernel_frags, smi)
+        kf, of = args.kernel_frags, args.oracle_frags
+        # the lane blocks of the three runs below, whole and unchanged
+        kv = {}
+        for tag, mates in (("paired_batch", batches[0]),
+                           ("single_end_batch", batches[0][:1]),
+                           ("long_batch", long_batch)):
+            kv.update(phase_kernel_vs_plain(
+                torch, tidx, tag, mates, (64,), smi, copy_rate, False))
+        # a sample with Ns.  64: the main pass; 1024: the escalation
+        # pass; 2: a capacity that the gene families overflow, so the
+        # kernel's cnt > C branch is held against the plain version too
+        for mates, caps in ((tuple(m[:kf] for m in batches[0]),
+                             (64, 1024, 2)),
+                            (tuple(m[:kf] for m in long_batch), (64,)),
+                            (xl, (64,))):
+            kv.update(phase_kernel_vs_plain(
+                torch, tidx, "sample", mates, caps, smi, copy_rate, True))
         note("kernel vs plain done")
-        phase_oracle(torch, index, tidx, batches[0], args.oracle_frags)
+        phase_oracle(torch, index, tidx, tuple(m[:of] for m in batches[0]),
+                     "IU", (64, 2))
+        phase_oracle(torch, index, tidx, (batches[0][0][:of],), "U", (64,))
+        phase_oracle(torch, index, tidx,
+                     tuple(m[:of // 2] for m in long_batch), "IU", (64,))
         note("oracle done")
-        phase_stages(torch, index, tidx, batches, smi)
+        profiled_ms = phase_stages(torch, index, tidx, batches, smi)
         note("stages done")
         del tidx, index
         torch.cuda.empty_cache()
-        launches = phase_end_to_end(torch, cli, wdir, idx_dir, batches,
-                                    args.batch, smi)
+        launches = phase_end_to_end(
+            torch, cli, wdir, idx_dir, "pe100", "IU",
+            tuple(np.concatenate([b[i] for b in batches]) for i in (0, 1)),
+            args.batch, smi, em_check=True)
+        launches_se = phase_end_to_end(
+            torch, cli, wdir, idx_dir, "se100", "U",
+            (np.concatenate([b[0] for b in batches]),), args.batch, smi)
+        launches_long = phase_end_to_end(
+            torch, cli, wdir, idx_dir, f"pe{LONG_READ_LEN}", "IU",
+            long_batch, args.batch, smi)
         note("end to end done")
-        require("jax" not in sys.modules, "jax was imported")
+        require("jax" not in sys.modules
+                and "sailfish_tpu" not in sys.modules,
+                "jax or the JAX package was imported")
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
-    kernels = [{
+    # ms, plain_ms and bound_ms are those of one launch of the paired
+    # run; "shapes" holds every shape compared, the three that a run
+    # launched with that run's count
+    L100 = (READ_LEN + 7) // 8 * 8
+    for key, n in ((f"paired_batch_L{L100}_C64", launches),
+                   (f"single_end_batch_L{L100}_C64", launches_se),
+                   (f"long_batch_L{LONG_READ_LEN}_C64", launches_long)):
+        kv[key]["launches"] = n
+    main_kv = kv[f"paired_batch_L{L100}_C64"]
+    kernels.insert(0, {
         "name": "mmp_scan", "route": "cuda", "source": KERNEL_SRC,
         "replaces": TPU_KERNEL, "launches": launches,
         "max_abs_err": max(v["max_abs_err"] for v in kv.values()),
-        "ms": kv[64]["ms"], "plain_ms": kv[64]["plain_ms"],
-        "ms_c1024": kv[1024]["ms"], "plain_ms_c1024": kv[1024]["plain_ms"],
-        "ms_c2": kv[2]["ms"], "plain_ms_c2": kv[2]["plain_ms"],
-    }]
+        "ms": main_kv["ms"], "plain_ms": main_kv["plain_ms"],
+        "bound_ms": main_kv["bound_ms"], "bound_by": main_kv["bound_by"],
+        "library_ms": None,
+        "profiled_kernel_ms_per_launch": profiled_ms,
+        "shapes": kv,
+    })
     say(json.dumps({"kernels": kernels}))
     say(smi)
     say(json.dumps({"ok": True, "device": {

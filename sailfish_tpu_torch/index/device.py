@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from ..device import as_device
-from ..host import QuasiIndex
+from .builder import QuasiIndex
 
 
 @dataclasses.dataclass
@@ -41,9 +41,9 @@ class TorchIndex:
 
     @classmethod
     def from_quasi_index(cls, index: QuasiIndex, device) -> "TorchIndex":
-        """Upload a host QuasiIndex (the JAX package's builder output) to
-        `device`.  Only 32-bit indexes with a k-mer table (k >= 17) are
-        ported; anything else raises."""
+        """Upload a host QuasiIndex (index/builder.py) to `device`.  Only
+        32-bit indexes with a k-mer table (k >= 17) are ported; anything
+        else raises."""
         if index.big_sa:
             raise NotImplementedError(
                 "64-bit (big_sa) indexes are not supported by the torch "

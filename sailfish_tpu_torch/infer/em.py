@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from ..device import as_device
-from ..host import EqClasses
+from ..eqclass.classes import EqClasses
 
 _DENORM_MIN64 = 4.9406564584124654e-324
 _ALPHA_CHECK_CUTOFF = 1e-2

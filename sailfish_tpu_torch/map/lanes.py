@@ -2,7 +2,10 @@
 
 Counterpart of sailfish_tpu/map/pallas_kernel.py
 `map_oriented_lanes_pallas`, full-width path: every live lane goes to the
-scan.  The TPU path's lane screen, clean-lane fast path, xscan and lane
+scan, at any read width L that is a multiple of 8 (the JAX package's
+three routes by width — Pallas kernel, map/xlong.py, XLA kernel — give
+the same hits by their contracts; the port has the one route).  The TPU
+path's lane screen, clean-lane fast path, xscan and lane
 compactions change no output by their own contracts and exist to keep
 work off the TPU's scalar unit; they are not ported.
 """
@@ -16,8 +19,6 @@ from .encode import make_oriented_lanes
 from .postpass import intersect_sort
 from .scan import mmp_scan
 
-MAX_READ_LEN = 128   # the ported slice: reads up to 128 bases
-
 
 def map_oriented_lanes(index: TorchIndex, codes: torch.Tensor,
                        lens: torch.Tensor, *, cand_cap: int, max_mmps: int,
@@ -25,11 +26,6 @@ def map_oriented_lanes(index: TorchIndex, codes: torch.Tensor,
     """(B, L) uint8 reads on the index's device -> per-lane hit dict over
     the 2B oriented lanes (fwd rows first, then rc): txp, pos, valid
     (2B, C) sorted by transcript; mlen, overflow, num_mapped_loci (2B,)."""
-    L = codes.shape[1]
-    if L > MAX_READ_LEN:
-        raise NotImplementedError(
-            f"reads of {L} bases: the torch port maps reads up to "
-            f"{MAX_READ_LEN} bases so far")
     lanes = make_oriented_lanes(codes, lens)
     txp, pos, vld, meta = mmp_scan(
         lanes, index, cand_cap=cand_cap, max_mmps=max_mmps,

@@ -3,10 +3,11 @@ eq-class label formation and within-batch label collapse.
 
 Counterpart of sailfish_tpu/map/pair.py (`merge_and_collapse`,
 `_hash_labels`, `_se_compat_bits`, `_pe_compat`, `collapse_unique`),
-paired-end libraries.  Same static shapes: per fragment the joint-hit
-slots are 4C wide (read 1 fw/rc, read 2 fw/rc).  The label hashes h1/h2
-are bit-equal to the JAX package's: the shared
-HashedEqClassAccumulator keys on (h1 << 32) | h2.
+paired-end and single-end libraries.  Same static shapes: per fragment
+the joint-hit slots are 4C wide (read 1 fw/rc, read 2 fw/rc), 2C for a
+single-end read.  The label hashes h1/h2 are bit-equal to the JAX
+package's, so both packages' HashedEqClassAccumulator key classes alike
+on (h1 << 32) | h2.
 """
 
 from __future__ import annotations
@@ -102,14 +103,17 @@ def pe_compat(pos1, fwd1, len1, pos2, fwd2, len2, exp_orientation: int,
 
 def merge_and_collapse(hits1_fw, hits1_rc, hits2_fw, hits2_rc, lens1, lens2,
                        exp_orientation: int, exp_strandedness: int,
-                       se_flags, *, cand_cap: int, max_read_occs: int,
+                       se_flags, *, paired_end: bool = True,
+                       cand_cap: int, max_read_occs: int,
                        allow_orphans: bool, allow_dovetail: bool,
                        ignore_compat: bool, enforce_compat: bool,
                        strict_intersect: bool = False) -> dict:
-    """Fragment-level merge + label formation for paired-end reads (the
-    four oriented hit blocks are merged by one sort on (txp, side,
-    orient); orientation resolution and mate pairing are neighbour tests
-    in that order).  Returns per-fragment tensors: label (B, 4C) int32
+    """Fragment-level merge + label formation (the oriented hit blocks —
+    four for a paired-end fragment, read 1's two for a single-end read,
+    whose hits2/lens2 arguments are ignored — are merged by one sort on
+    (txp, side, orient); orientation resolution and mate pairing are
+    neighbour tests in that order).  Returns per-fragment tensors: label
+    (B, W) int32, W = 4C paired-end or 2C single-end
     (PAD-filled), label_len, h1/h2 (int64 holding uint32), mapped,
     num_joint, unique_paired, frag_len, num_fwd, num_rc, overflow,
     fmt_id, have_compat."""
@@ -117,12 +121,18 @@ def merge_and_collapse(hits1_fw, hits1_rc, hits2_fw, hits2_rc, lens1, lens2,
     B = hits1_fw["txp"].shape[0]
     dev = hits1_fw["txp"].device
     NOKEY = -2
-    blocks = (hits1_fw, hits1_rc, hits2_fw, hits2_rc)
-    sides = (0, 0, 1, 1)
-    orients = (0, 1, 0, 1)
-    W = 4 * C
     rc1_wins = hits1_rc["mlen"] > hits1_fw["mlen"]
-    rc2_wins = hits2_rc["mlen"] > hits2_fw["mlen"]
+    if paired_end:
+        rc2_wins = hits2_rc["mlen"] > hits2_fw["mlen"]
+        blocks = (hits1_fw, hits1_rc, hits2_fw, hits2_rc)
+        sides = (0, 0, 1, 1)
+        orients = (0, 1, 0, 1)
+    else:
+        rc2_wins = rc1_wins
+        blocks = (hits1_fw, hits1_rc)
+        sides = (0, 0)
+        orients = (0, 1)
+    W = C * len(blocks)
 
     txp0 = torch.cat([b["txp"] for b in blocks], dim=1)
     pos0 = torch.cat([b["pos"] for b in blocks], dim=1)
@@ -156,45 +166,54 @@ def merge_and_collapse(hits1_fw, hits1_rc, hits2_fw, hits2_rc, lens1, lens2,
     keep = (valid & torch.where(same_ts_next, ~rcw, True)
             & torch.where(dup_prev, rcw, True))
 
-    l1 = lens1.to(torch.int32)[:, None].expand(B, W)
-    l2 = lens2.to(torch.int32)[:, None].expand(B, W)
-    # pairing: a kept left slot's kept right partner (same txp) sits
-    # 1..3 slots ahead
-    paired_l = torch.zeros((B, W), dtype=torch.bool, device=dev)
-    mate_pos = torch.zeros((B, W), dtype=torch.int32, device=dev)
-    mate_fwd = torch.zeros((B, W), dtype=torch.bool, device=dev)
-    for d in (1, 2, 3):
-        kd = (keep & (side == 0) & _shift_fwd(keep, d, False)
-              & (txp == _shift_fwd(txp, d, NOKEY))
-              & (_shift_fwd(side, d, 0) == 1))
-        new = kd & ~paired_l
-        mate_pos = torch.where(new, _shift_fwd(pos, d, 0), mate_pos)
-        mate_fwd = torch.where(new, _shift_fwd(fwd, d, False), mate_fwd)
-        paired_l = paired_l | kd
-    ap = paired_l.any(dim=1)[:, None]
+    if paired_end:
+        l1 = lens1.to(torch.int32)[:, None].expand(B, W)
+        l2 = lens2.to(torch.int32)[:, None].expand(B, W)
+        # pairing: a kept left slot's kept right partner (same txp) sits
+        # 1..3 slots ahead
+        paired_l = torch.zeros((B, W), dtype=torch.bool, device=dev)
+        mate_pos = torch.zeros((B, W), dtype=torch.int32, device=dev)
+        mate_fwd = torch.zeros((B, W), dtype=torch.bool, device=dev)
+        for d in (1, 2, 3):
+            kd = (keep & (side == 0) & _shift_fwd(keep, d, False)
+                  & (txp == _shift_fwd(txp, d, NOKEY))
+                  & (_shift_fwd(side, d, 0) == 1))
+            new = kd & ~paired_l
+            mate_pos = torch.where(new, _shift_fwd(pos, d, 0), mate_pos)
+            mate_fwd = torch.where(new, _shift_fwd(fwd, d, False), mate_fwd)
+            paired_l = paired_l | kd
+        ap = paired_l.any(dim=1)[:, None]
 
-    orphans = keep if allow_orphans else torch.zeros_like(keep)
-    if not strict_intersect:
-        left_has = (keep & (side == 0)).any(dim=1)
-        right_has = (keep & (side == 1)).any(dim=1)
-        orphans = orphans & ~(left_has & right_has)[:, None]
-    valid = torch.where(ap, paired_l, orphans)
-    status = torch.where(ap, PAIRED, torch.where(side == 0, LEFT, RIGHT))
-    mpos = torch.where(ap & paired_l, mate_pos, 0)
-    mfwd = ap & paired_l & mate_fwd
+        orphans = keep if allow_orphans else torch.zeros_like(keep)
+        if not strict_intersect:
+            left_has = (keep & (side == 0)).any(dim=1)
+            right_has = (keep & (side == 1)).any(dim=1)
+            orphans = orphans & ~(left_has & right_has)[:, None]
+        valid = torch.where(ap, paired_l, orphans)
+        status = torch.where(ap, PAIRED, torch.where(side == 0, LEFT, RIGHT))
+        mpos = torch.where(ap & paired_l, mate_pos, 0)
+        mfwd = ap & paired_l & mate_fwd
 
-    is_p = status == PAIRED
-    pe_ok, obs_o, obs_s = pe_compat(pos, fwd, l1, mpos, mfwd, l2,
-                                    exp_orientation, exp_strandedness,
-                                    allow_dovetail, ignore_compat)
-    se_ok = se_compat_bits(se_flags, status, fwd, ignore_compat)
-    compat = torch.where(is_p, pe_ok, se_ok)
-    fwd_hit = torch.where(status == RIGHT, ~fwd, fwd)
-    pe_fmt = 1 | (obs_o << 1) | (obs_s << 3)
-    se_fmt = (3 << 1) | (torch.where(fwd_hit, 2, 3) << 3)
-    slot_fmt = torch.where(is_p, pe_fmt, se_fmt)
-    slot_fraglen = (torch.maximum(pos + l1, mpos + l2)
-                    - torch.minimum(pos, mpos))
+        is_p = status == PAIRED
+        pe_ok, obs_o, obs_s = pe_compat(pos, fwd, l1, mpos, mfwd, l2,
+                                        exp_orientation, exp_strandedness,
+                                        allow_dovetail, ignore_compat)
+        se_ok = se_compat_bits(se_flags, status, fwd, ignore_compat)
+        compat = torch.where(is_p, pe_ok, se_ok)
+        fwd_hit = torch.where(status == RIGHT, ~fwd, fwd)
+        pe_fmt = 1 | (obs_o << 1) | (obs_s << 3)
+        se_fmt = (3 << 1) | (torch.where(fwd_hit, 2, 3) << 3)
+        slot_fmt = torch.where(is_p, pe_fmt, se_fmt)
+        slot_fraglen = (torch.maximum(pos + l1, mpos + l2)
+                        - torch.minimum(pos, mpos))
+    else:
+        valid = keep
+        status = torch.full((B, W), SINGLE, dtype=torch.int64, device=dev)
+        compat = se_compat_bits(se_flags, status, fwd, ignore_compat)
+        fwd_hit = fwd
+        is_p = torch.zeros((B, W), dtype=torch.bool, device=dev)
+        slot_fraglen = torch.zeros((B, W), dtype=torch.int32, device=dev)
+        slot_fmt = (3 << 1) | (torch.where(fwd_hit, 2, 3) << 3)
 
     num_joint = valid.sum(dim=1)
     too_many = (num_joint > max_read_occs) | overflow
@@ -218,6 +237,8 @@ def merge_and_collapse(hits1_fw, hits1_rc, hits2_fw, hits2_rc, lens1, lens2,
     label = torch.where(label == NEG, PAD, label)
     label_len = selected.sum(dim=1)
 
+    # the lone joint hit's slot (num_joint == 1 when this matters);
+    # single-end: is_p is all False, so no fragment is unique-paired
     first = valid.to(torch.uint8).argmax(dim=1, keepdim=True)
     unique_paired = (num_joint == 1) & is_p.gather(1, first)[:, 0] & mapped
     frag_len = torch.where(unique_paired,

@@ -1,10 +1,11 @@
-"""Device mapping backend: host orchestration of one paired-end batch.
+"""Device mapping backend: host orchestration of one batch of paired-end
+fragments or single-end reads.
 
 Counterpart of sailfish_tpu/map/pipeline.py (`_fused_tail`,
-`DeviceMapperBackend`), paired-end reads up to 128 bases on a 32-bit
-index.  Per batch: reads travel 2-bit packed and unpack on the device;
-both mates map in one lane block (map/lanes.py); merge, collapse and the
-batch counters reduce on the device (`fused_tail`).  The finishers pull
+`DeviceMapperBackend`), reads of any length on a 32-bit index.  Per
+batch: reads travel 2-bit packed and unpack on the device; both mates
+map in one lane block (map/lanes.py); merge, collapse and the batch
+counters reduce on the device (`fused_tail`).  The finishers pull
 one counter vector, the unique-class rows and, only for label hashes the
 accumulator has not seen, the exact labels.
 
@@ -25,19 +26,14 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..config import QuantOpts
 from ..device import as_device
-from ..host import (
-    EqClassAccumulator,
-    FastqBatch,
-    HashedEqClassAccumulator,
-    LibraryFormat,
-    MateStatus,
-    QuantOpts,
-    QuasiIndex,
-    RefMapper,
-    compatible_hit_single,
-)
+from ..eqclass.classes import EqClassAccumulator, HashedEqClassAccumulator
+from ..index.builder import QuasiIndex
 from ..index.device import TorchIndex
+from ..io.fastq import FastqBatch
+from ..libformat import LibraryFormat, MateStatus, compatible_hit_single
+from ..refimpl.mapper import RefMapper
 from .encode import pack_reads, unpack_reads
 from .lanes import map_oriented_lanes
 from .pair import collapse_unique, merge_and_collapse
@@ -93,8 +89,8 @@ def fmt_args(expected: LibraryFormat):
 
 
 def fused_tail(h1f, h1r, h2f, h2r, l1, l2, expected: LibraryFormat, *,
-               cand_cap: int, max_read_occs: int, allow_orphans: bool,
-               allow_dovetail: bool, ignore_compat: bool,
+               paired_end: bool = True, cand_cap: int, max_read_occs: int,
+               allow_orphans: bool, allow_dovetail: bool, ignore_compat: bool,
                enforce_compat: bool, strict_intersect: bool,
                max_frag_len: int) -> dict:
     """merge + collapse + batch reductions, all on the device.
@@ -106,7 +102,8 @@ def fused_tail(h1f, h1r, h2f, h2r, l1, l2, expected: LibraryFormat, *,
     orient, strand, se_flags = fmt_args(expected)
     out = merge_and_collapse(
         h1f, h1r, h2f, h2r, l1, l2, orient, strand, se_flags,
-        cand_cap=cand_cap, max_read_occs=max_read_occs,
+        paired_end=paired_end, cand_cap=cand_cap,
+        max_read_occs=max_read_occs,
         allow_orphans=allow_orphans, allow_dovetail=allow_dovetail,
         ignore_compat=ignore_compat, enforce_compat=enforce_compat,
         strict_intersect=strict_intersect)
@@ -143,9 +140,10 @@ def fused_tail(h1f, h1r, h2f, h2r, l1, l2, expected: LibraryFormat, *,
 
 
 class DeviceMapperBackend:
-    """Paired-end mapping on one device.  `submit_pe` queues a batch and
-    returns a token; `finish_batch_fast` (production, hash-keyed) or
-    `finish_batch` (exact labels, differential tests) syncs on it."""
+    """Mapping on one device.  `submit_pe` (paired-end fragments) and
+    `submit_se` (single-end reads) queue a batch and return a token;
+    `finish_batch_fast` (production, hash-keyed) or `finish_batch`
+    (exact labels, differential tests) syncs on it."""
 
     _ESC_ROWS = 1024
 
@@ -154,10 +152,6 @@ class DeviceMapperBackend:
         if opts.bias_correct or opts.gc_bias_correct:
             raise NotImplementedError(
                 "sequence / GC bias correction is not ported yet")
-        if opts.max_read_occs < 0:
-            raise ValueError("max_read_occs must be >= 0")
-        if opts.mmp_skip not in ("nip", "jump"):
-            raise ValueError(f"unknown mmp_skip rule: {opts.mmp_skip}")
         self.device = as_device(device)
         self.opts = opts
         self._index = index
@@ -187,6 +181,14 @@ class DeviceMapperBackend:
         return {"dev": dev, "n": b1.count, "batches": (b1, b2),
                 "L": (b1.codes.shape[1], b2.codes.shape[1])}
 
+    def prefetch_se(self, b) -> dict:
+        """The host half of `submit_se`."""
+        pw, nm = pack_reads(b.codes)
+        dev = tuple(self._upload(a) for a in (
+            pw.view(np.int32), nm.view(np.int32), b.lens.astype(np.int32)))
+        return {"dev": dev, "n": b.count, "batches": (b, None),
+                "L": (b.codes.shape[1],)}
+
     def _map(self, codes, lens, L):
         o = self.opts
         return map_oriented_lanes(
@@ -199,32 +201,48 @@ class DeviceMapperBackend:
         finishers take."""
         return self.map_prefetched(self.prefetch_pe(b1, b2), expected)
 
+    def submit_se(self, b, expected: LibraryFormat):
+        """Queue one batch of single-end reads; same token as
+        `submit_pe`."""
+        return self.map_prefetched(self.prefetch_se(b), expected)
+
     def map_prefetched(self, pf: dict, expected: LibraryFormat):
-        """The device half of `submit_pe`: unpack, lanes, scan,
-        post-pass, merge, collapse and counters, all queued."""
-        p1, n1, l1, p2, n2, l2 = pf["dev"]
-        L1, L2 = pf["L"]
+        """The device half of `submit_pe` / `submit_se`: unpack, lanes,
+        scan, post-pass, merge, collapse and counters, all queued."""
+        paired_end = pf["batches"][1] is not None
+        p1, n1, l1 = pf["dev"][:3]
+        L1 = pf["L"][0]
         c1 = unpack_reads(p1, n1, L1)
-        c2 = unpack_reads(p2, n2, L2)
         B = c1.shape[0]
 
         def part(d, sl):
             return {k: v[sl] for k, v in d.items() if k != "num_mapped_loci"}
 
-        if L1 == L2:
-            # both mates in one lane block: rows [m1; m2] x [fwd; rc]
-            hits = self._map(torch.cat([c1, c2]), torch.cat([l1, l2]), L1)
-            h1 = (part(hits, slice(0, B)), part(hits, slice(2 * B, 3 * B)))
-            h2 = (part(hits, slice(B, 2 * B)),
-                  part(hits, slice(3 * B, 4 * B)))
+        if not paired_end:
+            a = self._map(c1, l1, L1)
+            h1 = h2 = (part(a, slice(0, B)), part(a, slice(B, 2 * B)))
+            l2 = l1
         else:
-            a, b = self._map(c1, l1, L1), self._map(c2, l2, L2)
-            h1 = (part(a, slice(0, B)), part(a, slice(B, 2 * B)))
-            h2 = (part(b, slice(0, B)), part(b, slice(B, 2 * B)))
+            p2, n2, l2 = pf["dev"][3:]
+            L2 = pf["L"][1]
+            c2 = unpack_reads(p2, n2, L2)
+            if L1 == L2:
+                # both mates in one lane block: rows [m1; m2] x [fwd; rc]
+                hits = self._map(torch.cat([c1, c2]), torch.cat([l1, l2]),
+                                 L1)
+                h1 = (part(hits, slice(0, B)),
+                      part(hits, slice(2 * B, 3 * B)))
+                h2 = (part(hits, slice(B, 2 * B)),
+                      part(hits, slice(3 * B, 4 * B)))
+            else:
+                a, b = self._map(c1, l1, L1), self._map(c2, l2, L2)
+                h1 = (part(a, slice(0, B)), part(a, slice(B, 2 * B)))
+                h2 = (part(b, slice(0, B)), part(b, slice(B, 2 * B)))
         o = self.opts
         res = fused_tail(
             h1[0], h1[1], h2[0], h2[1], l1, l2, expected,
-            cand_cap=o.hit_capacity, max_read_occs=o.max_read_occs,
+            paired_end=paired_end, cand_cap=o.hit_capacity,
+            max_read_occs=o.max_read_occs,
             allow_orphans=o.allow_orphans, allow_dovetail=o.allow_dovetail,
             ignore_compat=o.ignore_lib_compat,
             enforce_compat=o.enforce_lib_compat,
@@ -278,9 +296,12 @@ class DeviceMapperBackend:
         esc = self._esc_backend()
         for s in range(0, len(idx), self._ESC_ROWS):
             ci = idx[s:s + self._ESC_ROWS]
-            tok = esc.submit_pe(FastqBatch(b1.codes[ci], b1.lens[ci]),
-                                FastqBatch(b2.codes[ci], b2.lens[ci]),
-                                expected)
+            sub1 = FastqBatch(b1.codes[ci], b1.lens[ci])
+            if b2 is None:
+                tok = esc.submit_se(sub1, expected)
+            else:
+                tok = esc.submit_pe(
+                    sub1, FastqBatch(b2.codes[ci], b2.lens[ci]), expected)
             yield ci, esc, tok
 
     def finish_batch_fast(self, token, acc) -> BatchStats:
@@ -368,6 +389,9 @@ class DeviceMapperBackend:
     def map_pe_batch(self, b1, b2, expected: LibraryFormat) -> BatchResult:
         return self.finish_batch(self.submit_pe(b1, b2, expected))
 
+    def map_se_batch(self, b, expected: LibraryFormat) -> BatchResult:
+        return self.finish_batch(self.submit_se(b, expected))
+
 
 class RefMapperBackend:
     """Host mapping with the numpy reference mapper, the correctness
@@ -384,9 +408,18 @@ class RefMapperBackend:
         return EqClassAccumulator()
 
     def map_pe_batch(self, b1, b2, expected: LibraryFormat) -> BatchResult:
-        rms = [self.mapper.map_fragment_pe(b1.codes[i, :b1.lens[i]],
-                                           b2.codes[i, :b2.lens[i]], expected)
-               for i in range(b1.count)]
+        return self._wrap([
+            self.mapper.map_fragment_pe(b1.codes[i, :b1.lens[i]],
+                                        b2.codes[i, :b2.lens[i]], expected)
+            for i in range(b1.count)])
+
+    def map_se_batch(self, b, expected: LibraryFormat) -> BatchResult:
+        return self._wrap([
+            self.mapper.map_fragment_se(b.codes[i, :b.lens[i]], expected)
+            for i in range(b.count)])
+
+    @staticmethod
+    def _wrap(rms) -> BatchResult:
         counts: dict = {}
         fmt_counts = np.zeros(64, dtype=np.int64)
         for rm in rms:
@@ -411,6 +444,7 @@ class RefMapperBackend:
         )
 
     submit_pe = map_pe_batch
+    submit_se = map_se_batch
 
     @staticmethod
     def finish_batch(token) -> BatchResult:

@@ -98,11 +98,13 @@ def mmp_scan_cuda(lanes: dict, index: TorchIndex, *, cand_cap: int,
 mmp_scan_cuda.launches = 0
 
 
-def _probe(index: TorchIndex, key0: torch.Tensor, key1: torch.Tensor):
+def _probe(index: TorchIndex, key0: torch.Tensor, key1: torch.Tensor,
+           count: bool = False):
     """Bucketed k-mer table lookup (map/kernels.py seed_hash): up to
     ht_probes buckets from the key's home bucket; a matching entry is a
     find, an empty entry in a probed bucket a miss.  Returns
-    (found, lo, cnt)."""
+    (found, lo, cnt, buckets read); the last is a 0-d tensor on the keys'
+    device when `count` is set, else None."""
     mask = (1 << index.ht_bits) - 1
     h = mix_kmer(key0, key1) & mask
     k0 = to_i32(key0)[:, None]
@@ -112,7 +114,11 @@ def _probe(index: TorchIndex, key0: torch.Tensor, key1: torch.Tensor):
     done = torch.zeros_like(found)
     lo = torch.zeros(n, dtype=torch.int64, device=key0.device)
     cnt = torch.zeros_like(lo)
+    buckets = torch.zeros((), dtype=torch.int64, device=key0.device) \
+        if count else None
     for _ in range(index.ht_probes):
+        if count:
+            buckets += n - done.sum()
         row = index.ht[h]
         cr = row[:, 12:16]
         match = (cr > 0) & (row[:, 0:4] == k0) & (row[:, 4:8] == k1)
@@ -124,15 +130,16 @@ def _probe(index: TorchIndex, key0: torch.Tensor, key1: torch.Tensor):
         found |= take
         done |= anym | (cr == 0).any(dim=1)
         h = torch.where(done, h, (h + 1) & mask)
-    return found, lo, cnt
+    return found, lo, cnt, buckets
 
 
-def _lcp(codes, lens, text, lane, i, g, chunk: int = 1 << 18):
+def _lcp(codes, lens, text, lane, i, g):
     """True-code LCP of read lane[p] from i against text from g, per
     flat candidate p: N in the read, a separator in the text and the
     read end all stop a match.  Runs in chunks of candidates to bound
-    the (chunk, L) temporaries."""
+    the (chunk, L) temporaries at any read width L."""
     L = codes.shape[1]
+    chunk = max(1, (1 << 25) // L)
     j = torch.arange(L, device=codes.device)
     out = []
     for s in range(0, lane.numel(), chunk):
@@ -147,12 +154,17 @@ def _lcp(codes, lens, text, lane, i, g, chunk: int = 1 << 18):
 
 def mmp_scan_reference(lanes: dict, index: TorchIndex, *, cand_cap: int,
                        max_mmps: int, max_steps: int,
-                       skip_jump: bool = False):
+                       skip_jump: bool = False, work: dict | None = None):
     """Plain torch version of the scan, vectorized over lanes: each round
     probes one position in every still-active lane, and the candidates of
     the lanes that found a k-mer with cnt <= cand_cap are flattened into
     one list for the LCP.  Same outputs as the kernel; used by the CPU
-    path and by the on-card comparison."""
+    path and by the on-card comparison.
+
+    `work`, when given, receives what these inputs made the scan do:
+    "buckets" (64-byte table rows read), "candidates" (suffix-array
+    entries read) and "text_bytes" (text bytes compared, the mismatching
+    one included) — the data-dependent terms of the kernel's bound."""
     _check(lanes, index, cand_cap, max_mmps)
     codes, pw = lanes["codes"], lanes["pw"]
     lens = lanes["lens"].to(torch.int64)
@@ -168,6 +180,8 @@ def mmp_scan_reference(lanes: dict, index: TorchIndex, *, cand_cap: int,
     over = torch.zeros(B2, dtype=torch.bool, device=dev)
     mlen = torch.zeros_like(i)
     sa = index.sa.to(torch.int64)
+    # the work counters stay on the device until the scan has ended
+    n_work = torch.zeros(3, dtype=torch.int64, device=dev)
     for _ in range(max_steps):
         act = ((i + k <= lens) & (nm < M)).nonzero()[:, 0]
         if act.numel() == 0:
@@ -175,7 +189,9 @@ def mmp_scan_reference(lanes: dict, index: TorchIndex, *, cand_cap: int,
         ia = i[act]
         key0 = u32(pw[act, ia])
         key1 = u32(pw[act, ia + 16]) >> (2 * (32 - k))
-        found, lo, cnt = _probe(index, key0, key1)
+        found, lo, cnt, nb = _probe(index, key0, key1, work is not None)
+        if work is not None:
+            n_work[0] += nb
         steps[act] += 1
         over[act] |= found & (cnt > C)
         sel = (found & (cnt <= C)).nonzero()[:, 0]
@@ -188,6 +204,10 @@ def mmp_scan_reference(lanes: dict, index: TorchIndex, *, cand_cap: int,
             c = torch.arange(own.numel(), device=dev) - start[own]
             g = sa[lo[sel][own] + c]
             lcp = _lcp(codes, lens, index.codes, ls[own], is_[own], g).long()
+            if work is not None:
+                at_end = is_[own] + lcp >= lens[ls[own]]
+                n_work[1] += own.numel()
+                n_work[2] += lcp.sum() + (~at_end).sum()
             lstar = torch.full((sel.numel(),), -1, dtype=torch.int64,
                                device=dev)
             lstar.scatter_reduce_(0, own, lcp, reduce="amax")
@@ -212,5 +232,8 @@ def mmp_scan_reference(lanes: dict, index: TorchIndex, *, cand_cap: int,
                 hadv = torch.clamp(lstar - k + 1, min=1)
             adv[sel] = torch.where(hit, hadv, 1)
         i[act] = ia + adv
+    if work is not None:
+        work.update(zip(("buckets", "candidates", "text_bytes"),
+                        n_work.tolist()))
     meta = torch.stack([nm, over.long(), mlen, steps], dim=1)
     return txp, pos, vld, meta.to(torch.int32)

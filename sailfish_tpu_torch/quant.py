@@ -1,10 +1,9 @@
-"""Quantification pipeline of the torch port: paired-end libraries.
+"""Quantification pipeline of the torch port: one read library per run,
+paired-end or single-end, of any of the library types of libformat.py.
 
 Counterpart of sailfish_tpu/quant.py `run_quant` (mapping loop, FLD,
-effective lengths, EM, outputs) for one paired-end library.  It reuses
-the JAX package's jax-free host modules — FASTQ reader, eq-class
-accumulator and dump, FLD statistics, output writers — and writes the
-same files.  Options outside the ported slice raise NotImplementedError.
+effective lengths, EM, outputs).  It writes the same files.  Options
+outside the ported slice raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -18,22 +17,20 @@ import time
 import numpy as np
 import torch
 
+from .config import QuantOpts
 from .device import as_device, describe, synchronize
-from .host import (
-    EmpiricalDistribution,
-    QuantOpts,
-    QuantWriter,
-    QuasiIndex,
-    ReadType,
-    _iter_fastq_seq_blocks,
-    effective_lengths_from_fld,
-    generate_gene_level_estimates,
-    iter_paired_fastq_batches,
-    load_index,
-    parse_library_format,
-)
+from .index.builder import load_index
 from .infer.em import run_em
+from .io.fastq import (
+    _iter_fastq_seq_blocks,
+    iter_fastq_batches,
+    iter_paired_fastq_batches,
+)
+from .libformat import ReadType, parse_library_format
 from .map.pipeline import make_backend
+from .output.genemap import generate_gene_level_estimates
+from .output.writers import QuantWriter
+from .stats.fld import EmpiricalDistribution, effective_lengths_from_fld
 
 log = logging.getLogger("sailfish_tpu_torch")
 
@@ -55,7 +52,7 @@ class ExperimentState:
 
 def check_slice(opts: QuantOpts):
     """Refuse options the port does not implement yet; returns the one
-    paired-end library (dict with fmt, m1, m2)."""
+    read library (dict with fmt, m1, m2, um)."""
     unsupported = {
         "bias correction (--biasCorrect / --gcBiasCorrect)":
             opts.bias_correct or opts.gc_bias_correct,
@@ -78,16 +75,14 @@ def check_slice(opts: QuantOpts):
         raise NotImplementedError(
             "the torch port quantifies one read library per run so far")
     lib = libs[0]
-    if parse_library_format(lib["fmt"]).type != ReadType.PAIRED_END:
-        raise NotImplementedError(
-            "single-end libraries are not supported by the torch port yet")
-    if not lib["m1"] or not lib["m2"]:
-        raise ValueError("paired-end libType requires --mates1/--mates2")
-    if len(lib["m1"]) != len(lib["m2"]):
-        raise ValueError(
-            "--mates1 and --mates2 must list the same number of files")
-    if opts.dtype not in ("float32", "float64"):
-        raise ValueError(f"unknown EM dtype: {opts.dtype}")
+    if parse_library_format(lib["fmt"]).type == ReadType.PAIRED_END:
+        if not lib["m1"] or not lib["m2"]:
+            raise ValueError("paired-end libType requires --mates1/--mates2")
+        if len(lib["m1"]) != len(lib["m2"]):
+            raise ValueError(
+                "--mates1 and --mates2 must list the same number of files")
+    elif not lib["um"]:
+        raise ValueError("single-end libType requires --unmatedReads")
     return lib
 
 
@@ -148,23 +143,20 @@ def _write_quant_state(aux_path: str, state: ExperimentState) -> None:
 
 def run_quant(opts: QuantOpts, *, device, backend: str = "device",
               ordered_opts: list | None = None) -> dict:
-    """Map every fragment of the paired-end library on `device` (or on
-    the host with backend "refimpl"), infer abundances on `device` and
+    """Map every fragment of the read library on `device` (or on the
+    host with backend "refimpl"), infer abundances on `device` and
     write quant.sf plus the aux outputs.  Returns run statistics
     (counts, EM iterations, per-batch wall-clock ms)."""
     t_start = time.time()
     start_time = time.strftime("%a %b %d %H:%M:%S %Y")
     lib = check_slice(opts)
     expected = parse_library_format(lib["fmt"])
+    paired = expected.type == ReadType.PAIRED_END
     dev = as_device(device)
     log.info("torch port on %s (%s backend)", describe(dev), backend)
 
     t0 = time.time()
     index = load_index(opts.index_dir)
-    if not isinstance(index, QuasiIndex):
-        raise NotImplementedError(
-            "sharded indexes (--indexShards) are not supported by the "
-            "torch port yet")
     t_index = time.time() - t0
     names = index.names
     ref_lens = index.txp_lens.astype(np.int64)
@@ -195,15 +187,24 @@ def run_quant(opts: QuantOpts, *, device, backend: str = "device",
         batch_ms.append(1e3 * (now - t_last))
         t_last = now
 
-    for f1, f2 in zip(lib["m1"], lib["m2"]):
-        ml = max(probe_max_len(f1), probe_max_len(f2))
-        for b1, b2 in iter_paired_fastq_batches(
-                f1, f2, opts.batch_size, max_len=ml,
-                decode_threads=opts.num_threads):
-            token = mapper.submit_pe(b1, b2, expected)
-            if pending is not None:
-                fold(pending)
-            pending = token
+    def tokens():
+        if paired:
+            for f1, f2 in zip(lib["m1"], lib["m2"]):
+                ml = max(probe_max_len(f1), probe_max_len(f2))
+                for b1, b2 in iter_paired_fastq_batches(
+                        f1, f2, opts.batch_size, max_len=ml,
+                        decode_threads=opts.num_threads):
+                    yield mapper.submit_pe(b1, b2, expected)
+        else:
+            for f in lib["um"]:
+                for b in iter_fastq_batches(f, opts.batch_size,
+                                            max_len=probe_max_len(f)):
+                    yield mapper.submit_se(b, expected)
+
+    for token in tokens():
+        if pending is not None:
+            fold(pending)
+        pending = token
     if pending is not None:
         fold(pending)
     synchronize(dev)
@@ -224,7 +225,7 @@ def run_quant(opts: QuantOpts, *, device, backend: str = "device",
             ref_lens, state.fl_hist, num_observed=num_fld_obs,
             num_required=opts.num_frag_samples, fld_mean=opts.fld_mean,
             fld_sd=opts.fld_sd, max_frag_len=opts.max_frag_len,
-            use_unsmoothed=opts.use_unsmoothed_fld, paired_end=True)
+            use_unsmoothed=opts.use_unsmoothed_fld, paired_end=paired)
     if opts.dump_eq:
         writer.write_equiv_counts(names, eq)
         _write_quant_state(writer.aux_path, state)

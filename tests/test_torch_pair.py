@@ -7,15 +7,16 @@ import numpy as np
 import pytest
 import torch
 
-from sailfish_tpu.libformat import parse_library_format
 from sailfish_tpu.map.pair import collapse_unique as jax_collapse
 from sailfish_tpu.map.pair import merge_and_collapse as jax_merge
 from sailfish_tpu_torch.index.device import TorchIndex
+from sailfish_tpu_torch.libformat import parse_library_format
 from sailfish_tpu_torch.map.lanes import map_oriented_lanes
 from sailfish_tpu_torch.map.pair import collapse_unique, merge_and_collapse
 from sailfish_tpu_torch.map.pipeline import fmt_args
 
 from conftest import to_batch
+from torch_port import port_index
 
 C = 16
 
@@ -23,7 +24,7 @@ C = 16
 def _blocks(toy_world, b1, b2):
     """Port hit blocks (fw, rc) for both mates; the scan itself is held
     against the JAX kernels in test_torch_scan.py."""
-    tidx = TorchIndex.from_quasi_index(toy_world["idx"], "cpu")
+    tidx = TorchIndex.from_quasi_index(port_index(toy_world["idx"]), "cpu")
     out = []
     for b in (b1, b2):
         h = map_oriented_lanes(tidx, torch.from_numpy(b.codes),

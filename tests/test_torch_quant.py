@@ -8,32 +8,50 @@ digits)."""
 
 import json
 import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
 
-from sailfish_tpu import dna
-from sailfish_tpu.config import QuantOpts
+from sailfish_tpu.config import QuantOpts as JaxOpts
 from sailfish_tpu.eqclass.classes import HashedEqClassAccumulator
 from sailfish_tpu.libformat import parse_library_format
 from sailfish_tpu.map.pipeline import DeviceMapperBackend as JaxBackend
+from sailfish_tpu_torch.config import QuantOpts
+from sailfish_tpu_torch.eqclass.classes import (
+    HashedEqClassAccumulator as PortAccumulator,
+)
+from sailfish_tpu_torch.libformat import (
+    parse_library_format as port_format,
+)
 from sailfish_tpu_torch.map.pipeline import DeviceMapperBackend
 
 from conftest import to_batch
+from torch_port import done_stats as _done_stats
+from torch_port import port_batch, port_index
+from torch_port import read_quant_sf as _read_quant_sf
+from torch_port import write_world as _write_world
+
+
+@pytest.fixture(scope="module")
+def pidx(toy_world):
+    return port_index(toy_world["idx"])
 
 
 @pytest.mark.parametrize("cap,cap_max", [(16, 0), (2, 16)])
-def test_backend_matches_jax(toy_world, cap, cap_max):
+def test_backend_matches_jax(toy_world, pidx, cap, cap_max):
     """(2, 16): the shared 100bp segment overflows C = 2, so those
     fragments take the escalation pass at C = 16 in both packages."""
-    opts = QuantOpts(batch_size=160, hit_capacity=cap,
-                     hit_capacity_max=cap_max)
+    kw = dict(batch_size=160, hit_capacity=cap, hit_capacity_max=cap_max)
     exp = parse_library_format("IU")
+    pexp = port_format("IU")
     r1, r2, _ = toy_world["sim"](160, err_rate=0.3, seed=41)
     b1, b2 = to_batch(r1), to_batch(r2)
-    port = DeviceMapperBackend(toy_world["idx"], opts, "cpu")
-    ref = JaxBackend(toy_world["idx"], opts)
-    bp = port.map_pe_batch(b1, b2, exp)
+    pb1, pb2 = port_batch(b1), port_batch(b2)
+    port = DeviceMapperBackend(pidx, QuantOpts(**kw), "cpu")
+    ref = JaxBackend(toy_world["idx"], JaxOpts(**kw))
+    bp = port.map_pe_batch(pb1, pb2, pexp)
     br = ref.map_pe_batch(b1, b2, exp)
     assert (dict(zip(bp.labels, bp.label_counts.tolist()))
             == dict(zip(br.labels, br.label_counts.tolist())))
@@ -45,8 +63,8 @@ def test_backend_matches_jax(toy_world, cap, cap_max):
         assert getattr(bp, f) == getattr(br, f), f
 
     # the hash-keyed fast path folds the same classes
-    acc_p, acc_r = HashedEqClassAccumulator(), HashedEqClassAccumulator()
-    sp = port.finish_batch_fast(port.submit_pe(b1, b2, exp), acc_p)
+    acc_p, acc_r = PortAccumulator(), HashedEqClassAccumulator()
+    sp = port.finish_batch_fast(port.submit_pe(pb1, pb2, pexp), acc_p)
     tok_r = ref.submit_pe(b1, b2, exp)
     overflowed = int(np.asarray(tok_r[0]["scalars"])[72])
     sr = ref.finish_batch_fast(tok_r, acc_r)
@@ -55,38 +73,6 @@ def test_backend_matches_jax(toy_world, cap, cap_max):
     np.testing.assert_array_equal(sp.fld_hist(), sr.fld_hist())
     assert sp.num_escalated == (overflowed if cap_max else 0)
     assert (sp.num_escalated > 0) == bool(cap_max)
-
-
-def _write_world(toy_world, d, n=400):
-    fasta = os.path.join(d, "txps.fa")
-    with open(fasta, "w") as fh:
-        for name, s in zip(toy_world["names"], toy_world["seqs"]):
-            fh.write(f">{name}\n{dna.decode(s)}\n")
-    r1, r2, _ = toy_world["sim"](n, err_rate=0.3, seed=5)
-    paths = []
-    for m, reads in ((1, r1), (2, r2)):
-        p = os.path.join(d, f"r{m}.fq")
-        with open(p, "w") as fh:
-            for i, r in enumerate(reads):
-                s = dna.decode(r)
-                fh.write(f"@f{i}/{m}\n{s}\n+\n{'I' * len(s)}\n")
-        paths.append(p)
-    return fasta, paths
-
-
-def _done_stats(out):
-    """The `done: {...}` record of a CLI run's log file."""
-    with open(os.path.join(out, "logs", "sailfish_quant.log")) as fh:
-        lines = [ln for ln in fh if "done: " in ln]
-    return json.loads(lines[-1].split("done: ", 1)[1])
-
-
-def _read_quant_sf(path):
-    with open(path) as fh:
-        rows = [ln.rstrip("\n").split("\t") for ln in fh][1:]
-    names = [r[0] for r in rows]
-    num = np.array([[float(x) for x in r[1:]] for r in rows])
-    return names, num
 
 
 def test_cli_matches_jax_cli(toy_world, tmp_path, monkeypatch):
@@ -101,9 +87,11 @@ def test_cli_matches_jax_cli(toy_world, tmp_path, monkeypatch):
         idx = str(tmp_path / f"idx_{tag}")
         out = str(tmp_path / f"q_{tag}")
         assert main(["index", "-t", fasta, "-o", idx, "-k", "31"]) == 0
+        dev = ["--device", "cpu"] if tag == "torch" else []
         assert main(["quant", "-i", idx, "-l", "IU", "-1", fq1, "-2", fq2,
                      "-o", out, "--dumpEq", "--batchSize", "128",
-                     "--hitCapacity", "2", "--hitCapacityMax", "16"]) == 0
+                     "--hitCapacity", "2", "--hitCapacityMax", "16",
+                     *dev]) == 0
         outs[tag] = out
     ja, to = outs["jax"], outs["torch"]
     with open(os.path.join(ja, "aux", "eq_classes.txt")) as fh:
@@ -130,18 +118,18 @@ def test_cli_matches_jax_cli(toy_world, tmp_path, monkeypatch):
         assert os.path.exists(os.path.join(to, f)), f
 
 
-def test_refimpl_backend_matches_device_backend(toy_world):
+def test_refimpl_backend_matches_device_backend(toy_world, pidx):
     """The host oracle behind `--backend refimpl` folds the same classes
     and FLD observations as the device backend (exact)."""
     from sailfish_tpu_torch.map.pipeline import make_backend
 
     opts = QuantOpts(hit_capacity=2, hit_capacity_max=16)
-    exp = parse_library_format("IU")
+    exp = port_format("IU")
     r1, r2, _ = toy_world["sim"](96, err_rate=0.3, seed=43)
-    b1, b2 = to_batch(r1), to_batch(r2)
+    b1, b2 = port_batch(to_batch(r1)), port_batch(to_batch(r2))
     stats, accs = {}, {}
     for name in ("device", "refimpl"):
-        be = make_backend(toy_world["idx"], opts, "cpu", name)
+        be = make_backend(pidx, opts, "cpu", name)
         accs[name] = be.accumulator()
         stats[name] = be.finish_batch_fast(be.submit_pe(b1, b2, exp),
                                            accs[name])
@@ -170,7 +158,7 @@ def test_cli_refimpl_backend_matches_device(toy_world, tmp_path):
         assert torch_main(["quant", "-i", idx, "-l", "IU", "-1", fq1, "-2",
                            fq2, "-o", out, "--dumpEq", "--backend", backend,
                            "--hitCapacity", "2", "--hitCapacityMax",
-                           "16"]) == 0
+                           "16", "--device", "cpu"]) == 0
         with open(os.path.join(out, "aux", "meta_info.json")) as fh:
             assert json.load(fh)["quant_timings"]["backend"] == backend
         files[backend] = [open(os.path.join(out, f)).read()
@@ -194,29 +182,66 @@ def test_cli_refuses_flags_outside_slice(tmp_path, flags):
 
 
 def test_cli_refuses_single_end_and_sharded_index(tmp_path):
+    """A single-end libType without -r, a second library, and a sharded
+    index build are refused with a usage error (single-end libraries
+    themselves are quantified: tests/test_torch_se.py)."""
     from sailfish_tpu_torch.cli import main as torch_main
 
-    with pytest.raises(SystemExit):
-        torch_main(["quant", "-i", str(tmp_path), "-l", "U", "-r", "a.fq",
+    with pytest.raises(SystemExit) as ei:
+        torch_main(["quant", "-i", str(tmp_path), "-l", "U", "-1", "a.fq",
+                    "-2", "b.fq", "-o", str(tmp_path / "o")])
+    assert ei.value.code == 2
+    with pytest.raises(SystemExit) as ei:
+        torch_main(["quant", "-i", str(tmp_path), "-l", "IU", "-1", "a.fq",
+                    "-2", "b.fq", "-l", "U", "-r", "c.fq",
                     "-o", str(tmp_path / "o")])
-    with pytest.raises(SystemExit):
+    assert ei.value.code == 2
+    with pytest.raises(SystemExit) as ei:
         torch_main(["index", "-t", "x.fa", "-o", str(tmp_path / "i"),
                     "--indexShards", "2"])
+    assert ei.value.code == 2
 
 
-def test_outside_slice_raises(toy_world):
-    """Reads over 128 bases and 64-bit indexes raise instead of switching
-    paths."""
+def test_outside_slice_raises(toy_world, tmp_path):
+    """64-bit indexes, sharded index directories and option values the
+    port does not know raise instead of switching paths (reads over 128
+    bases map: tests/test_torch_xlong.py)."""
     from sailfish_tpu.index.builder import build_index
+    from sailfish_tpu_torch.index.builder import load_index
     from sailfish_tpu_torch.index.device import TorchIndex
 
-    opts = QuantOpts(hit_capacity=16)
-    port = DeviceMapperBackend(toy_world["idx"], opts, "cpu")
-    r1, r2, _ = toy_world["sim"](8, seed=3)
-    b1, b2 = to_batch(r1, max_len=136), to_batch(r2, max_len=136)
-    with pytest.raises(NotImplementedError, match="128"):
-        port.submit_pe(b1, b2, parse_library_format("IU"))
     big = build_index(toy_world["names"][:2], toy_world["seqs"][:2], k=31,
                       force_big_sa=True)
     with pytest.raises(NotImplementedError, match="big_sa"):
-        TorchIndex.from_quasi_index(big, "cpu")
+        TorchIndex.from_quasi_index(port_index(big), "cpu")
+    with open(tmp_path / "header.json", "w") as fh:
+        json.dump({"sharded": 2, "shard_ranges": [[0, 1], [1, 2]]}, fh)
+    with pytest.raises(NotImplementedError, match="sharded"):
+        load_index(str(tmp_path))
+    for bad in (dict(mmp_skip="hop"), dict(dtype="bfloat16"),
+                dict(max_read_occs=-1), dict(hit_capacity=0)):
+        with pytest.raises(ValueError):
+            QuantOpts(**bad)
+
+
+def test_cli_runs_on_the_card_unless_asked_for_the_cpu(toy_world, tmp_path):
+    """Without --device cpu and without a card, `quant` fails with
+    device.py as_device's message; it does not fall back to the CPU."""
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA card: the default runs")
+    fasta, (fq1, fq2) = _write_world(toy_world, str(tmp_path), n=8)
+    idx = str(tmp_path / "idx")
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(
+        os.path.dirname(os.path.abspath(__file__))))
+    cli = [sys.executable, "-m", "sailfish_tpu_torch.cli"]
+    subprocess.run([*cli, "index", "-t", fasta, "-o", idx], env=env,
+                   check=True, capture_output=True, timeout=300)
+    proc = subprocess.run(
+        [*cli, "quant", "-i", idx, "-l", "IU", "-1", fq1, "-2", fq2,
+         "-o", str(tmp_path / "q")], env=env, capture_output=True,
+        text=True, timeout=300)
+    assert proc.returncode != 0
+    assert "torch.cuda.is_available() is False" in proc.stderr
+    assert not os.path.exists(tmp_path / "q" / "quant.sf")

@@ -20,6 +20,8 @@ from sailfish_tpu_torch.map.encode import make_oriented_lanes
 from sailfish_tpu_torch.map.lanes import map_oriented_lanes
 from sailfish_tpu_torch.map.scan import mmp_scan, mmp_scan_reference
 
+from torch_port import port_index
+
 B, L, U = 64, 56, 50   # tests/test_pallas.py shapes
 
 
@@ -43,7 +45,7 @@ def _reads(toy_world, seed=3):
 
 
 def _port(toy_world, codes, lens, **kw):
-    tidx = TorchIndex.from_quasi_index(toy_world["idx"], "cpu")
+    tidx = TorchIndex.from_quasi_index(port_index(toy_world["idx"]), "cpu")
     out = map_oriented_lanes(tidx, torch.from_numpy(codes),
                              torch.from_numpy(lens), **kw)
     return {k: v.numpy() for k, v in out.items()}
@@ -117,7 +119,7 @@ def test_dispatch_runs_plain_version_on_cpu(toy_world):
     launches no kernel."""
     from sailfish_tpu_torch.map.scan import mmp_scan_cuda
 
-    tidx = TorchIndex.from_quasi_index(toy_world["idx"], "cpu")
+    tidx = TorchIndex.from_quasi_index(port_index(toy_world["idx"]), "cpu")
     codes, lens = _reads(toy_world, seed=5)
     lanes = make_oriented_lanes(torch.from_numpy(codes),
                                 torch.from_numpy(lens))
@@ -130,3 +132,28 @@ def test_dispatch_runs_plain_version_on_cpu(toy_world):
     assert mmp_scan_cuda.launches == before
     with pytest.raises(ValueError):
         mmp_scan_cuda(lanes, tidx, **kw)
+
+
+@pytest.mark.parametrize("cap", [16, 2])
+def test_work_counters_of_the_plain_version(toy_world, cap):
+    """`work` reports what the inputs made the scan do and changes no
+    output: at least one table row per probed position, every stored
+    candidate read from the suffix array, at least k text bytes compared
+    for a candidate that reached a match."""
+    tidx = TorchIndex.from_quasi_index(port_index(toy_world["idx"]), "cpu")
+    codes, lens = _reads(toy_world, seed=5)
+    lanes = make_oriented_lanes(torch.from_numpy(codes),
+                                torch.from_numpy(lens))
+    kw = dict(cand_cap=cap, max_mmps=4, max_steps=L)
+    work = {}
+    a = mmp_scan_reference(lanes, tidx, work=work, **kw)
+    b = mmp_scan_reference(lanes, tidx, **kw)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+    assert set(work) == {"buckets", "candidates", "text_bytes"}
+    assert all(isinstance(v, int) for v in work.values())
+    steps = int(a[3][:, 3].sum())
+    assert steps <= work["buckets"] <= steps * tidx.ht_probes
+    assert work["candidates"] >= int(a[2].sum()) > 0
+    assert work["text_bytes"] >= tidx.k * int(a[2].sum())
+    assert work["text_bytes"] <= work["candidates"] * (U + 1)
