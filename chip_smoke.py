@@ -21,17 +21,24 @@ result line):
      2 batches of 65,536 paired 100 bp fragments with 0.5% substitutions
      (seed 11) and 1 batch of 65,536 paired 152 bp fragments (seed 13)
      written as FASTQ
-  4. kernel vs plain: the CUDA scan and its plain torch version on the
-     same card tensors, equal after the post-pass, both timed, with the
-     least time the card could take for the same bytes and operations.
+  4. kernel vs plain: the CUDA scan, run into buffers filled with 0xFF,
+     and its plain torch version on the same card tensors: all four
+     outputs equal bit for bit (every slot written), equal after the
+     post-pass, both timed, with the least time the card could take for
+     the same bytes and operations, and the table rows the kernel read
+     beside those the scan needs.
      First the three lane blocks that the runs of phase 7 give the
      kernel, whole and unchanged, at C = 64: a batch of 65,536 paired
      100 bp fragments (both mates, fwd + rc: 262,144 lanes, L = 104),
      its first mates as a single-end batch (131,072 lanes) and a batch
      of paired 152 bp fragments (262,144 lanes, L = 152).  Then a
      sample of 8,192 fragments with an N in every 7th read: C = 64,
-     C = 1024 (the escalation pass) and C = 2, where lanes must
-     overflow, at L = 104, and C = 64 at L = 152 and L = 304
+     C = 64 under the jump rule, C = 1024 (the escalation pass) and
+     C = 2, where lanes must overflow, at L = 104, and C = 64 at L = 152
+     and L = 304.  Last the risk reads (ragged lengths, the text's tail,
+     Ns on k-mer edges, miss chains that cross a probe window) at step
+     budgets of 1, 31, 32, 33 and L, under both skip rules, at C = 64
+     and C = 2
   5. oracle: eq-class labels and counts of a sample of fragments from
      the port's device backend equal its `--backend refimpl` backend
      (the numpy reference mapper): paired 100 bp at --hitCapacity 64 and
@@ -49,6 +56,10 @@ result line):
      as a single-end library, and `quant -l IU` on the paired 152 bp
      reads
   8. the kernel table line, the nvidia-smi line, then the result line
+
+`--kernel-only` runs phases 1, 3 and 4 (toolchain, world, kernel vs
+plain) and prints no result line: the quick way to time a change to the
+scan kernel.
 
 It imports only the port (sailfish_tpu_torch), no jax, and needs the
 repository beside it.
@@ -204,6 +215,12 @@ def phase_toolchain(torch):
         f"{kl.path.name}; ptxas: {len(regs)} kernels, registers "
         f"{min(regs, default=0)}-{max(regs, default=0)}, "
         f"{len(spills)} with spills")
+    lines = kl.build_log.splitlines()
+    for n, ln in enumerate(lines):
+        if "Compiling entry function" in ln and "mmp_scan_kernel" in ln:
+            say("ptxas mmp_scan_kernel: " + " | ".join(
+                x.replace("ptxas info    :", "").strip()
+                for x in lines[n + 1:n + 4]))
     t0 = time.time()
     native = native_sais_available()
     say(f"host helpers (g++): {'built and loaded' if native else 'NOT built'}"
@@ -393,7 +410,65 @@ def phase_world(args, cli):
         mask = r304.random(m.shape) < ERR
         m[mask] = (m[mask] + r304.integers(1, 4, mask.sum())) % 4
     xl[1] = (3 - xl[1][:, ::-1]).astype(np.uint8)
-    return idx_dir, wdir, batches, long_batch, tuple(xl)
+    return idx_dir, wdir, batches, long_batch, tuple(xl), seqs
+
+
+def risk_reads(seqs, k, L, seed):
+    """Reads that a windowed, chunked scan can get wrong, cut from the
+    transcripts `seqs` (uint8 code arrays in text order, each at least L
+    bases): (codes (n, L) uint8 padded with code 4, lens (n,) int32).
+
+      - ragged lengths: k - 1, k, L - 1, L and some between
+      - reads that end on the last base of the last transcript, and reads
+        that run past it (their match ends at the text's final separator)
+      - an N at the first, the 16th and the last base of a k-mer, and at
+        the read's last base
+      - a read across two transcripts with an N where the text has its
+        separator: an N ends a match even against a text code 4
+      - a substitution every 33 bases, so that under 17 <= k <= 31 only
+        a few k-mers per read are in the table and the miss chains
+        between them cross a 32-position probe window
+      - clean reads, which map on their first probe
+    tests/torch_port.py carries this function too (the CPU tests' copy)."""
+    rng = np.random.default_rng(seed)
+    out = []
+
+    def cut(n):
+        s = seqs[int(rng.integers(0, len(seqs)))]
+        p = int(rng.integers(0, len(s) - n + 1))
+        return s[p:p + n].copy()
+
+    for n in (k - 1, k, k + 1, L - 1, L, (k + L) // 2):
+        out += [cut(n) for _ in range(3)]
+    last = seqs[-1]
+    for n in (L, L - 1, k, k + 9):
+        out.append(last[len(last) - n:].copy())
+    for keep in (k, k + 5, L // 2):
+        tail = rng.integers(0, 4, L - keep).astype(np.uint8)
+        out.append(np.concatenate([last[len(last) - keep:], tail]))
+    for p0 in (0, 7, L - k):
+        for at in (p0, p0 + 15, p0 + k - 1):
+            m = cut(L)
+            m[at] = 4
+            out.append(m)
+    for n in (L, L - 3):
+        m = cut(n)
+        m[n - 1] = 4
+        out.append(m)
+    for t in (0, int(rng.integers(0, len(seqs) - 1))):
+        m = np.concatenate([seqs[t][len(seqs[t]) - k - 9:], [4],
+                            seqs[t + 1][:L - k - 10]]).astype(np.uint8)
+        out.append(m)
+    for first in (16, 0, 32):
+        for _ in range(3):
+            m = cut(L)
+            m[first::33] = (m[first::33] + 1) % 4
+            out.append(m)
+    out += [cut(L) for _ in range(4)]
+    codes = np.full((len(out), L), 4, np.uint8)
+    for i, m in enumerate(out):
+        codes[i, :len(m)] = m
+    return codes, np.array([len(m) for m in out], np.int32)
 
 
 def _padded(m):
@@ -411,20 +486,17 @@ def _fastq_batch(m):
     return FastqBatch(_padded(m), np.full(m.shape[0], m.shape[1], np.int32))
 
 
-def _lanes_for(torch, mates, dev, with_n):
-    """The mates of the fragments as one lane block, as the backend
-    lays it out (rows [m1; m2] x [fwd; rc], or [m; fwd, rc] for a
-    single-end batch).  `with_n` puts an N (code 4) at base 37 of every
+def _mate_reads(mates, with_n):
+    """The mates of the fragments as one block of reads, as the backend
+    lays it out (rows [m1; m2], or [m] for a single-end batch): (codes,
+    lens, description).  `with_n` puts an N (code 4) at base 37 of every
     7th read: an N hashes as A in the probe key but ends a match in the
     LCP, so such lanes hold the kernel to both."""
-    from sailfish_tpu_torch.map.encode import make_oriented_lanes
-
     codes = np.concatenate([_padded(m) for m in mates])
     if with_n:
         codes[::7, 37] = 4
     lens = np.full(codes.shape[0], mates[0].shape[1], np.int32)
-    return make_oriented_lanes(torch.from_numpy(codes).to(dev),
-                               torch.from_numpy(lens).to(dev)), codes.shape[1]
+    return codes, lens, f"{mates[0].shape[0]} reads x {len(mates)} mates"
 
 
 def _time_ms(torch, fn, reps):
@@ -444,79 +516,106 @@ def scan_bound(lanes, meta, work, C, M):
     """Least time for one scan call on these inputs.  Bytes that must
     move: per lane L code bytes, 4 L packed-word bytes, its length and
     its 16 bytes of meta; 64 bytes per table row read; 4 bytes of suffix
-    array and the compared text bytes per candidate; and the M * C slots
-    of 9 bytes per lane that the wrapper zero-fills.  Operations: about
+    array and the compared text bytes per candidate; 8 bytes per stored
+    candidate (its `txp_of_pos` and `txp_offsets` entries); and the M * C
+    slots of 9 bytes per lane, each written once.  Operations: about
     40 per probed position, 10 per candidate, 6 per compared byte."""
     n, L = lanes["codes"].shape
     steps = int(meta[:, 3].sum())
     nbytes = (n * (5 * L + 4 + 16) + 64 * work["buckets"]
               + 4 * work["candidates"] + work["text_bytes"]
-              + n * M * C * 9)
+              + 8 * work["stored"] + n * M * C * 9)
     nops = 40 * steps + 10 * work["candidates"] + 6 * work["text_bytes"]
     return bound_ms(nbytes, nops)
 
 
-def phase_kernel_vs_plain(torch, tidx, tag, mates, caps, card, copy_rate,
-                          with_n):
-    """The CUDA scan against its plain version on the lanes of `mates`
-    (one or two (n, read_len) code blocks) at each capacity of `caps`.
-    Returns {"<tag>_L<L>_C<C>": readings}."""
+def phase_kernel_vs_plain(torch, tidx, tag, reads, cases, card, copy_rate):
+    """The CUDA scan against its plain version on the oriented lanes of
+    `reads` ((codes, lens, description) on the host) in each of `cases`:
+    dicts of `cand_cap` and, where they differ from the main path's,
+    `max_steps` (default L) and `skip_jump`.  The kernel writes into
+    buffers filled with 0xFF, so a slot it left out shows.
+    Returns {"<tag>_L<L>_C<C>[_jump][_S<max_steps>]": readings}."""
+    from sailfish_tpu_torch.map.encode import make_oriented_lanes
     from sailfish_tpu_torch.map.postpass import intersect_sort
     from sailfish_tpu_torch.map.scan import mmp_scan_cuda, mmp_scan_reference
 
     dev = tidx.device
-    n_frags = mates[0].shape[0]
-    lanes, L = _lanes_for(torch, mates, dev, with_n)
+    codes, lens, what = reads
+    L = codes.shape[1]
+    lanes = make_oriented_lanes(torch.from_numpy(codes).to(dev),
+                                torch.from_numpy(lens).to(dev))
     n_lanes = lanes["codes"].shape[0]
-    # lanes whose read holds an N: rows of every 7th read, fwd and rc
+    # lanes whose read holds an N, fwd and rc
     has_n = (lanes["codes"] == 4).logical_and(
         torch.arange(L, device=dev)[None, :] < lanes["lens"][:, None]
     ).any(1)
     out = {}
-    for C in caps:
-        kw = dict(cand_cap=C, max_mmps=4, max_steps=L)
+    for case in cases:
+        C = case["cand_cap"]
+        kw = {"max_mmps": 4, "max_steps": L, "skip_jump": False, **case}
+        name = (f"{tag}_L{L}_C{C}" + ("_jump" if kw["skip_jump"] else "")
+                + (f"_S{kw['max_steps']}" if "max_steps" in case else ""))
         work = {}
-        k = mmp_scan_cuda(lanes, tidx, **kw)
+        bufs = tuple(
+            torch.full(shape, fill, dtype=dt, device=dev)
+            for shape, fill, dt in (
+                ((n_lanes, 4 * C), -1, torch.int32),
+                ((n_lanes, 4 * C), -1, torch.int32),
+                ((n_lanes, 4 * C), 255, torch.uint8),
+                ((n_lanes, 4), -1, torch.int32)))
+        k = mmp_scan_cuda(lanes, tidx, out=bufs, **kw)
         p = mmp_scan_reference(lanes, tidx, work=work, **kw)
         torch.cuda.synchronize()
+        err = 0
+        # valid as bytes: a slot still 0xFF must not pass for True
+        for what_out, a, b in zip(("txp", "pos", "valid", "meta"), k, p):
+            a = a.view(torch.uint8) if a.dtype == torch.bool else a
+            d = int((a.long() - b.long()).abs().max()) if a.numel() else 0
+            require(d == 0, f"{name}: raw `{what_out}` of the kernel "
+                    f"differs from the plain version's in "
+                    f"{int((a.long() != b.long()).sum())} places (max abs "
+                    f"diff {d})")
+            err = max(err, d)
         ks = intersect_sort(*k[:3], k[3][:, 0], C=C, M=4)
         ps = intersect_sort(*p[:3], p[3][:, 0], C=C, M=4)
-        err = 0
-        require(torch.equal(ks[2], ps[2]),
-                f"L={L} C={C}: valid masks differ")
-        v = ps[2]
-        for a, b in ((ks[0][v], ps[0][v]), (ks[1][v], ps[1][v]),
-                     (k[3], p[3]), (ks[2].sum(1), ps[2].sum(1))):
-            if a.numel():
-                err = max(err, int((a.long() - b.long()).abs().max()))
-        require(err == 0, f"L={L} C={C}: kernel and plain version differ "
-                f"(max abs err {err})")
-        raw_equal = all(torch.equal(x, y) for x, y in zip(k, p))
-        mapped = int((v.sum(1) > 0).sum())
-        del ks, ps, p, v
+        require(all(torch.equal(x, y) for x, y in zip(ks, ps)),
+                f"{name}: kernel and plain version differ after the "
+                "post-pass")
+        mapped = int((ps[2].sum(1) > 0).sum())
+        del ks, ps, p, bufs
+        rows = torch.zeros(1, dtype=torch.int64, device=dev)
+        mmp_scan_cuda(lanes, tidx, rows_read=rows, **kw)
+        rows = int(rows.item())
+        require(rows >= work["buckets"], f"{name}: the kernel read {rows} "
+                f"table rows, fewer than the {work['buckets']} the scan "
+                "needs")
         ms = _time_ms(torch, lambda: mmp_scan_cuda(lanes, tidx, **kw), 5)
         plain_ms = _time_ms(
             torch, lambda: mmp_scan_reference(lanes, tidx, **kw), 1)
         bound = scan_bound(lanes, k[3], work, C, 4)
         over = k[3][:, 1] != 0
         nover, nover_n = int(over.sum()), int((over & has_n).sum())
-        if C == 2:
-            require(nover > 0, "C=2: no lane overflowed")
-        say(f"kernel vs plain {tag} L={L} C={C}: {n_lanes} lanes ({n_frags} "
-            f"reads x {len(mates)} mates x fwd/rc; {int(has_n.sum())} lanes "
-            f"with an N), equal after the post-pass, meta equal (raw slots "
-            f"equal: {raw_equal}); overflow lanes {nover} ({nover_n} with "
-            f"an N), mapped lanes {mapped}; probed "
-            f"positions {int(k[3][:, 3].sum())}, table rows "
-            f"{work['buckets']}, candidates {work['candidates']}, text "
+        if C == 2 and "max_steps" not in case:
+            require(nover > 0, f"{name}: no lane overflowed")
+        say(f"kernel vs plain {name}: {n_lanes} lanes ({what} x fwd/rc; "
+            f"{int(has_n.sum())} lanes with an N), all four raw outputs "
+            f"equal written over 0xFF, equal after the post-pass; overflow "
+            f"lanes {nover} ({nover_n} with an N), mapped lanes {mapped}; "
+            f"probed positions {int(k[3][:, 3].sum())}, table rows needed "
+            f"{work['buckets']}, read by the kernel {rows} "
+            f"({rows / max(work['buckets'], 1):.4f}x), candidates "
+            f"{work['candidates']} ({work['stored']} stored), text "
             f"bytes {work['text_bytes']}; kernel {ms:.3f} ms, plain "
             f"{plain_ms:.3f} ms, bound {bound['bound_ms']:.4f} ms by "
             f"{bound['bound_by']} at the published peak "
             f"({bound['bound_ms'] * PEAK_BYTES_S / copy_rate:.4f} ms at "
-            f"the measured copy rate) [{card}]")
-        out[f"{tag}_L{L}_C{C}"] = {
+            f"the measured copy rate), kernel / bound "
+            f"{ms / bound['bound_ms']:.2f} [{card}]")
+        out[name] = {
             "lanes": n_lanes, "ms": ms, "plain_ms": plain_ms,
-            "max_abs_err": err, **bound}
+            "max_abs_err": err, "table_rows_needed": work["buckets"],
+            "table_rows_read": rows, **bound}
         del k
         torch.cuda.empty_cache()
     return out
@@ -665,7 +764,7 @@ def phase_stages(torch, index, tidx, batches, card):
     for e in evts[:8]:
         say(f"profile kernel: {_device_us(e) / 1e3:9.3f} ms  x{e.count:<5d} "
             f"{e.key[:90]}")
-    # the scan kernel alone, without the wrapper's zero-fill
+    # the scan kernel alone, as the profiler times it inside the pipeline
     return scan_us / 1e3 / max(sum(e.count for e in scan), 1)
 
 
@@ -766,6 +865,8 @@ def main(argv=None) -> int:
     ap.add_argument("--batch", type=int, default=65536)
     ap.add_argument("--kernel-frags", type=int, default=8192)
     ap.add_argument("--oracle-frags", type=int, default=2048)
+    ap.add_argument("--kernel-only", action="store_true",
+                    help="stop after the kernel comparison; no result line")
     args = ap.parse_args(argv)
 
     import torch
@@ -787,9 +888,10 @@ def main(argv=None) -> int:
         phase_toolchain(torch)
         smi = nvidia_smi_line()
         copy_rate = phase_copy_bandwidth(torch, smi)
-        kernels = [phase_ubench(torch, smi)]
+        kernels = [] if args.kernel_only else [phase_ubench(torch, smi)]
         note("ubench done")
-        idx_dir, wdir, batches, long_batch, xl = phase_world(args, cli)
+        idx_dir, wdir, batches, long_batch, xl, seqs = phase_world(args,
+                                                                    cli)
         note("world ready")
         t0 = time.time()
         index = load_index(idx_dir)
@@ -800,21 +902,46 @@ def main(argv=None) -> int:
         kf, of = args.kernel_frags, args.oracle_frags
         # the lane blocks of the three runs below, whole and unchanged
         kv = {}
+        main_case = [{"cand_cap": 64}]
         for tag, mates in (("paired_batch", batches[0]),
                            ("single_end_batch", batches[0][:1]),
                            ("long_batch", long_batch)):
             kv.update(phase_kernel_vs_plain(
-                torch, tidx, tag, mates, (64,), smi, copy_rate, False))
-        # a sample with Ns.  64: the main pass; 1024: the escalation
-        # pass; 2: a capacity that the gene families overflow, so the
-        # kernel's cnt > C branch is held against the plain version too
-        for mates, caps in ((tuple(m[:kf] for m in batches[0]),
-                             (64, 1024, 2)),
-                            (tuple(m[:kf] for m in long_batch), (64,)),
-                            (xl, (64,))):
+                torch, tidx, tag, _mate_reads(mates, False), main_case, smi,
+                copy_rate))
+        # a sample with Ns.  64: the main pass, under both skip rules;
+        # 1024: the escalation pass; 2: a capacity that the gene families
+        # overflow, so the kernel's cnt > C branch is held against the
+        # plain version too
+        for mates, cases in (
+                (tuple(m[:kf] for m in batches[0]),
+                 main_case + [{"cand_cap": 64, "skip_jump": True},
+                              {"cand_cap": 1024}, {"cand_cap": 2}]),
+                (tuple(m[:kf] for m in long_batch), main_case),
+                (xl, main_case)):
             kv.update(phase_kernel_vs_plain(
-                torch, tidx, "sample", mates, caps, smi, copy_rate, True))
+                torch, tidx, "sample", _mate_reads(mates, True), cases, smi,
+                copy_rate))
+        # the risk reads, 16 seeds of them, with step budgets that end
+        # before, at and behind a 32-position probe window
+        L100 = (READ_LEN + 7) // 8 * 8
+        risk = [risk_reads(seqs, tidx.k, L100, seed) for seed in range(16)]
+        risk = (np.concatenate([r[0] for r in risk]),
+                np.concatenate([r[1] for r in risk]))
+        kv.update(phase_kernel_vs_plain(
+            torch, tidx, "risk", (*risk, f"{len(risk[1])} risk reads"),
+            [{"cand_cap": 64, "max_steps": st} for st in (1, 31, 32, 33)]
+            + main_case
+            + [{"cand_cap": 64, "skip_jump": True},
+               {"cand_cap": 64, "skip_jump": True, "max_steps": 33},
+               {"cand_cap": 2}, {"cand_cap": 2, "max_steps": 33}],
+            smi, copy_rate))
+        del seqs
         note("kernel vs plain done")
+        if args.kernel_only:
+            say(json.dumps({"scan_shapes": kv}))
+            say(smi)
+            return 0
         phase_oracle(torch, index, tidx, tuple(m[:of] for m in batches[0]),
                      "IU", (64, 2))
         phase_oracle(torch, index, tidx, (batches[0][0][:of],), "U", (64,))
@@ -845,7 +972,6 @@ def main(argv=None) -> int:
     # ms, plain_ms and bound_ms are those of one launch of the paired
     # run; "shapes" holds every shape compared, the three that a run
     # launched with that run's count
-    L100 = (READ_LEN + 7) // 8 * 8
     for key, n in ((f"paired_batch_L{L100}_C64", launches),
                    (f"single_end_batch_L{L100}_C64", launches_se),
                    (f"long_batch_L{LONG_READ_LEN}_C64", launches_long)):

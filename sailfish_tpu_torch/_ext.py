@@ -37,7 +37,7 @@ NVCC_FLAGS = (
 )
 GXX_FLAGS = ("-O3", "-fPIC", "-std=c++17")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 
 @dataclasses.dataclass
@@ -124,9 +124,9 @@ def _build(compiler: str, flags, sources, out: Path,
 
 def _bind(lib: ctypes.CDLL) -> None:
     lib.sf_mmp_scan.argtypes = [
-        _P, _P, _P, _I, _I, _P, _P, _P, _P, _P,
+        _P, _P, _P, _I, _I, _P, _LL, _P, _P, _P, _P,
         _I, _I, _I, _I, _I, _I, _I,
-        _P, _P, _P, _P, _I, _P,
+        _P, _P, _P, _P, _P, _I, _P,
     ]
     lib.sf_mmp_scan.restype = _I
     lib.sf_ubench.argtypes = [

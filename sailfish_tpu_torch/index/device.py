@@ -7,8 +7,13 @@ layout for both the CUDA kernel and its torch reference: the true text
 codes (separators and transcript Ns are code 4), the suffix array, and
 the bucketed k-mer table with each 4-entry bucket fused into one
 64-byte row [key0 x4 | key1 x4 | lo x4 | cnt x4], so a probe reads one
-cache line.  The (8,128)-tile images, fused text rows and the image
-caches of the TPU path are not needed here.
+cache line.  The text is uploaded with TEXT_PAD trailing bytes of code 4
+behind its final separator: the CUDA scan compares 16 text bytes at a
+time from any candidate position, and the padding keeps the last such
+read inside the allocation.  `n_text` stays the true length; the suffix
+array and `txp_of_pos` cover the true text only.  The (8,128)-tile
+images, fused text rows and the image caches of the TPU path are not
+needed here.
 """
 
 from __future__ import annotations
@@ -19,25 +24,26 @@ import numpy as np
 import torch
 
 from ..device import as_device
+from ..dna import SEP
 from .builder import QuasiIndex
+
+TEXT_PAD = 16
 
 
 @dataclasses.dataclass
 class TorchIndex:
     k: int
+    n_text: int                   # text positions, without the padding
     ht_bits: int                  # the table has 2**ht_bits buckets
     ht_probes: int                # exact worst-case probe chain (buckets)
-    codes: torch.Tensor           # uint8[N] true text codes (SEP = 4)
+    codes: torch.Tensor           # uint8[N + TEXT_PAD] true text codes
+                                  # (SEP = 4), then TEXT_PAD bytes of 4
     sa: torch.Tensor              # int32[N] suffix array (A-substituted order)
     ht: torch.Tensor              # int32[S, 16] fused k-mer table buckets
     txp_of_pos: torch.Tensor      # int32[N] text position -> transcript id
     txp_offsets: torch.Tensor     # int32[T] transcript start positions
     txp_lens: torch.Tensor        # int32[T]
     device: torch.device
-
-    @property
-    def n_text(self) -> int:
-        return int(self.codes.shape[0])
 
     @classmethod
     def from_quasi_index(cls, index: QuasiIndex, device) -> "TorchIndex":
@@ -52,6 +58,8 @@ class TorchIndex:
             raise ValueError(
                 "the torch port maps through the k-mer table; build the "
                 "index with k >= 17")
+        if len(index.codes) == 0 or index.codes[-1] != SEP:
+            raise ValueError("the index text must end in a separator")
         dev = as_device(device)
         ht = index.kmer_ht
         fused = np.concatenate(
@@ -65,9 +73,11 @@ class TorchIndex:
 
         return cls(
             k=int(index.k),
+            n_text=len(index.codes),
             ht_bits=int(ht["ht_bits"]),
             ht_probes=int(ht["max_probes"]),
-            codes=up(index.codes, np.uint8),
+            codes=up(np.concatenate(
+                [index.codes, np.full(TEXT_PAD, SEP, np.uint8)]), np.uint8),
             sa=up(index.sa, np.int32),
             ht=up(fused, np.int32),
             txp_of_pos=up(index.txp_of_pos, np.int32),

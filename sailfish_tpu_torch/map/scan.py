@@ -16,8 +16,13 @@ Outputs, per lane (B2 lanes, C = cand_cap, M = max_mmps):
   valid     bool  (B2, M*C)  candidate achieved the MMP length lstar
   meta      int32 (B2, 4)    [n_mmps, overflow, mlen (first MMP's lstar),
                               probed positions]
-Slots of MMPs a lane did not find are zero.  Slot order within an MMP
+Slots that hold no candidate (behind an MMP's cnt candidates, and all
+slots of MMPs a lane did not find) are zero; the kernel writes them
+itself, so its buffers start uninitialised.  Slot order within an MMP
 follows the suffix array; the post-pass (map/postpass.py) canonicalizes.
+The index text carries trailing padding (index/device.py TEXT_PAD): the
+kernel's 16-byte text compare may read it, and the plain version clamps
+into it, where code 4 ends a match as the final separator does.
 """
 
 from __future__ import annotations
@@ -61,34 +66,68 @@ def mmp_scan(lanes: dict, index: TorchIndex, *, cand_cap: int,
     raise ValueError(f"unsupported device: {dev}")
 
 
+def _outputs(B2: int, C: int, M: int, dev, out):
+    """The four output tensors of a scan: fresh and uninitialised (the
+    kernel writes every slot), or the caller's `out`, checked."""
+    shapes = (((B2, M * C), torch.int32), ((B2, M * C), torch.int32),
+              ((B2, M * C), torch.uint8), ((B2, 4), torch.int32))
+    if out is None:
+        return tuple(torch.empty(s, dtype=d, device=dev) for s, d in shapes)
+    if len(out) != 4:
+        raise ValueError("out needs four tensors: txp, pos, valid, meta")
+    for o, (s, d) in zip(out, shapes):
+        if o.shape != s or o.dtype != d or o.device != dev \
+                or not o.is_contiguous() or o.data_ptr() % 16:
+            raise ValueError(
+                f"out tensor {tuple(o.shape)} {o.dtype} on {o.device}: need "
+                f"{s} {d} on {dev}, contiguous and 16-byte aligned")
+    return tuple(out)
+
+
 def mmp_scan_cuda(lanes: dict, index: TorchIndex, *, cand_cap: int,
-                  max_mmps: int, max_steps: int, skip_jump: bool = False):
+                  max_mmps: int, max_steps: int, skip_jump: bool = False,
+                  out=None, rows_read: torch.Tensor | None = None):
     """Launch csrc/mmp_scan.cu on the current stream of the lanes' CUDA
-    device.  `mmp_scan_cuda.launches` counts successful launches."""
+    device.  `mmp_scan_cuda.launches` counts successful launches.
+
+    `out`, when given, is four preallocated tensors (int32 txp and pos,
+    uint8 valid, int32 meta) that the kernel fills instead of fresh ones;
+    whatever they held is overwritten, every slot.  `rows_read`, when
+    given, is a one-element int64 tensor on the device to which the kernel
+    adds the 64-byte table rows it reads (a measurement aid: it costs an
+    atomic per probe window)."""
     from .. import _ext
 
     _check(lanes, index, cand_cap, max_mmps)
-    codes = lanes["codes"].contiguous()
-    pw = lanes["pw"].contiguous()
-    lens = lanes["lens"].contiguous()
-    dev = codes.device
+    dev = lanes["codes"].device
     if dev.type != "cuda":
         raise ValueError(f"mmp_scan_cuda needs CUDA tensors (got {dev})")
+    B2, L = lanes["codes"].shape
+    if L % 8:
+        raise ValueError(f"the kernel needs a read width that is a multiple "
+                         f"of 8 (got {L})")
+    if rows_read is not None and (
+            rows_read.dtype != torch.int64 or rows_read.numel() != 1
+            or rows_read.device != dev):
+        raise ValueError("rows_read must be one int64 on the lanes' device")
+    # the kernel copies lane rows with 16-byte loads
+    codes, pw, lens = (
+        t if t.is_contiguous() and t.data_ptr() % 16 == 0 else t.clone(
+            memory_format=torch.contiguous_format)
+        for t in (lanes["codes"], lanes["pw"], lanes["lens"]))
     kl = _ext.load()
-    B2, L = codes.shape
     C, M = cand_cap, max_mmps
-    txp = torch.zeros((B2, M * C), dtype=torch.int32, device=dev)
-    pos = torch.zeros((B2, M * C), dtype=torch.int32, device=dev)
-    vld = torch.zeros((B2, M * C), dtype=torch.uint8, device=dev)
-    meta = torch.empty((B2, 4), dtype=torch.int32, device=dev)
+    txp, pos, vld, meta = _outputs(B2, C, M, dev, out)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = kl.lib.sf_mmp_scan(
         codes.data_ptr(), pw.data_ptr(), lens.data_ptr(), B2, L,
-        index.codes.data_ptr(), index.sa.data_ptr(), index.ht.data_ptr(),
-        index.txp_of_pos.data_ptr(), index.txp_offsets.data_ptr(),
-        index.k, C, M, max_steps, index.ht_bits, index.ht_probes,
-        int(skip_jump), txp.data_ptr(), pos.data_ptr(), vld.data_ptr(),
-        meta.data_ptr(), dev.index, stream,
+        index.codes.data_ptr(), index.codes.numel(), index.sa.data_ptr(),
+        index.ht.data_ptr(), index.txp_of_pos.data_ptr(),
+        index.txp_offsets.data_ptr(), index.k, C, M, max_steps,
+        index.ht_bits, index.ht_probes, int(skip_jump), txp.data_ptr(),
+        pos.data_ptr(), vld.data_ptr(), meta.data_ptr(),
+        None if rows_read is None else rows_read.data_ptr(), dev.index,
+        stream,
     )
     kl.check(err, "mmp_scan kernel launch")
     mmp_scan_cuda.launches += 1
@@ -163,8 +202,10 @@ def mmp_scan_reference(lanes: dict, index: TorchIndex, *, cand_cap: int,
 
     `work`, when given, receives what these inputs made the scan do:
     "buckets" (64-byte table rows read), "candidates" (suffix-array
-    entries read) and "text_bytes" (text bytes compared, the mismatching
-    one included) — the data-dependent terms of the kernel's bound."""
+    entries read), "text_bytes" (text bytes compared, the mismatching
+    one included) and "stored" (candidates written to a slot, each of
+    which reads `txp_of_pos` and `txp_offsets`) — the data-dependent
+    terms of the kernel's bound."""
     _check(lanes, index, cand_cap, max_mmps)
     codes, pw = lanes["codes"], lanes["pw"]
     lens = lanes["lens"].to(torch.int64)
@@ -181,7 +222,7 @@ def mmp_scan_reference(lanes: dict, index: TorchIndex, *, cand_cap: int,
     mlen = torch.zeros_like(i)
     sa = index.sa.to(torch.int64)
     # the work counters stay on the device until the scan has ended
-    n_work = torch.zeros(3, dtype=torch.int64, device=dev)
+    n_work = torch.zeros(4, dtype=torch.int64, device=dev)
     for _ in range(max_steps):
         act = ((i + k <= lens) & (nm < M)).nonzero()[:, 0]
         if act.numel() == 0:
@@ -213,6 +254,8 @@ def mmp_scan_reference(lanes: dict, index: TorchIndex, *, cand_cap: int,
             lstar.scatter_reduce_(0, own, lcp, reduce="amax")
             hit = lstar >= k
             hc = hit[own].nonzero()[:, 0]
+            if work is not None:
+                n_work[3] += hc.numel()
             if hc.numel():
                 o = own[hc]
                 lane_c = ls[o]
@@ -233,7 +276,7 @@ def mmp_scan_reference(lanes: dict, index: TorchIndex, *, cand_cap: int,
             adv[sel] = torch.where(hit, hadv, 1)
         i[act] = ia + adv
     if work is not None:
-        work.update(zip(("buckets", "candidates", "text_bytes"),
+        work.update(zip(("buckets", "candidates", "text_bytes", "stored"),
                         n_work.tolist()))
     meta = torch.stack([nm, over.long(), mlen, steps], dim=1)
     return txp, pos, vld, meta.to(torch.int32)

@@ -75,3 +75,81 @@ def test_kernel_build_is_not_triggered_by_import():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "True"
+
+
+def _extern_c_functions(source):
+    """{name: [parameter type, ...]} of the functions a .cu file defines
+    inside `extern "C" { ... }`, read from the source text."""
+    import re
+
+    body = source[source.index('extern "C" {'):]
+    out = {}
+    for m in re.finditer(r"^[\w \*]+?\b(\w+)\(([^)]*)\)\s*\{", body, re.M):
+        params = [p.strip() for p in m.group(2).split(",") if p.strip()]
+        out[m.group(1)] = [p.rsplit(None, 1)[0].replace(" ", "")
+                           if not p.endswith("*") else p.replace(" ", "")
+                           for p in params if p != "void"]
+    return out
+
+
+def test_ctypes_binding_follows_the_c_interface():
+    """Nothing compiles on a CPU-only machine, so the sources are read:
+    every extern "C" function of csrc/*.cu is bound in `_ext._bind` with
+    one argtype per C parameter, of the matching kind (pointer, int,
+    long long), and no kernel source includes a PyTorch header."""
+    import ctypes
+    import glob
+
+    from sailfish_tpu_torch import _ext
+
+    class FakeFn:
+        argtypes = None
+        restype = None
+
+    class FakeLib:
+        def __init__(self):
+            self.fns = {}
+
+        def __getattr__(self, name):
+            return self.fns.setdefault(name, FakeFn())
+
+    lib = FakeLib()
+    _ext._bind(lib)
+    kinds = {"int": ctypes.c_int, "longlong": ctypes.c_longlong,
+             "constvoid*": ctypes.c_void_p, "void*": ctypes.c_void_p}
+    sources = sorted(glob.glob(os.path.join(
+        ROOT, "sailfish_tpu_torch", "csrc", "*.cu")))
+    assert [os.path.basename(p) for p in sources] == [
+        p.name for p in sorted(_ext.SOURCES)]
+    declared = {}
+    for path in sources:
+        with open(path) as fh:
+            src = fh.read()
+        for header in ("torch/", "ATen/", "c10/", "pybind11"):
+            assert f"#include <{header}" not in src \
+                and f'#include "{header}' not in src, (path, header)
+        declared.update(_extern_c_functions(src))
+    assert {"sf_mmp_scan", "sf_ubench", "sf_ubench_num_variants",
+            "sf_cuda_error_string"} <= set(declared)
+    assert set(lib.fns) == set(declared)
+    for name, params in declared.items():
+        fn = lib.fns[name]
+        assert fn.restype is not None, name
+        assert fn.argtypes is not None, name
+        assert [kinds[p] for p in params] == list(fn.argtypes), name
+
+
+def test_smoke_carries_the_tests_risk_reads():
+    """chip_smoke.py imports nothing from tests/, so it carries a copy of
+    tests/torch_port.py `risk_reads`: the two must be the same code (the
+    docstrings may differ)."""
+    def body(path):
+        with open(path) as fh:
+            tree = ast.parse(fh.read(), path)
+        fn, = [n for n in tree.body if isinstance(n, ast.FunctionDef)
+               and n.name == "risk_reads"]
+        assert ast.get_docstring(fn)
+        return ast.dump(ast.Module(body=fn.body[1:], type_ignores=[]))
+
+    assert body(os.path.join(ROOT, "chip_smoke.py")) == body(
+        os.path.join(ROOT, "tests", "torch_port.py"))

@@ -20,9 +20,10 @@ from sailfish_tpu_torch.map.encode import make_oriented_lanes
 from sailfish_tpu_torch.map.lanes import map_oriented_lanes
 from sailfish_tpu_torch.map.scan import mmp_scan, mmp_scan_reference
 
-from torch_port import port_index
+from torch_port import port_index, risk_reads
 
 B, L, U = 64, 56, 50   # tests/test_pallas.py shapes
+RISK_L = 104           # wide enough for miss chains longer than 32
 
 
 def _reads(toy_world, seed=3):
@@ -64,21 +65,39 @@ def _assert_same(port, ref):
                                       err_msg=key)
 
 
-# (max_steps, skip rule, candidate capacity); max_steps None = full budget
+# (reads, max_steps, skip rule, candidate capacity); max_steps None = the
+# full budget.  "toy" are the reads of `_reads`; "risk" those of
+# torch_port.risk_reads at RISK_L, with step budgets that end before,
+# at and behind a 32-position probe window
 CASES = [
-    (4, "nip", 16),
-    (None, "nip", 16),
-    (4, "jump", 16),
-    (None, "jump", 16),
-    (None, "nip", 2),
+    ("toy", 4, "nip", 16),
+    ("toy", None, "nip", 16),
+    ("toy", 4, "jump", 16),
+    ("toy", None, "jump", 16),
+    ("toy", None, "nip", 2),
+    ("risk", 1, "nip", 16),
+    ("risk", 31, "nip", 16),
+    ("risk", 32, "nip", 16),
+    ("risk", 33, "nip", 16),
+    ("risk", None, "nip", 16),
+    ("risk", None, "jump", 16),
+    ("risk", 33, "jump", 16),
+    ("risk", None, "nip", 2),
+    ("risk", 33, "nip", 2),
 ]
 
 
-@pytest.mark.parametrize("steps,skip,cap", CASES)
-def test_scan_matches_xla_kernel(toy_world, steps, skip, cap):
+@pytest.mark.parametrize(
+    "reads,steps,skip,cap", CASES,
+    ids=["-".join(str(x) for x in c[c[0] == "toy":]) for c in CASES])
+def test_scan_matches_xla_kernel(toy_world, reads, steps, skip, cap):
     idx = toy_world["idx"]
     dev = DeviceMapperBackend(idx, QuantOpts())
-    codes, lens = _reads(toy_world)
+    if reads == "toy":
+        codes, lens = _reads(toy_world)
+    else:
+        codes, lens = risk_reads(toy_world["seqs"], idx.k, RISK_L, seed=23)
+    L = codes.shape[1]
     kw = dict(cand_cap=cap, max_mmps=4, max_steps=steps or L,
               skip_jump=(skip == "jump"))
     lanes = jax_lanes(jnp.asarray(codes), jnp.asarray(lens),
@@ -88,11 +107,11 @@ def test_scan_matches_xla_kernel(toy_world, steps, skip, cap):
                   ht_bits=dev.ht_bits, **kw)
     port = _port(toy_world, codes, lens, **kw)
     _assert_same(port, ref)
-    if cap == 2:
+    if cap == 2 and steps is None:
         # the toy world's shared 100bp segment puts 3 copies of its
         # k-mers in the text: C = 2 must overflow those lanes
         assert port["overflow"].any()
-    else:
+    elif cap != 2:
         assert not port["overflow"].any()
     assert port["valid"].any()
 
@@ -138,8 +157,9 @@ def test_dispatch_runs_plain_version_on_cpu(toy_world):
 def test_work_counters_of_the_plain_version(toy_world, cap):
     """`work` reports what the inputs made the scan do and changes no
     output: at least one table row per probed position, every stored
-    candidate read from the suffix array, at least k text bytes compared
-    for a candidate that reached a match."""
+    candidate read from the suffix array, every valid slot a stored
+    candidate, at least k text bytes compared for a candidate that
+    reached a match."""
     tidx = TorchIndex.from_quasi_index(port_index(toy_world["idx"]), "cpu")
     codes, lens = _reads(toy_world, seed=5)
     lanes = make_oriented_lanes(torch.from_numpy(codes),
@@ -150,10 +170,49 @@ def test_work_counters_of_the_plain_version(toy_world, cap):
     b = mmp_scan_reference(lanes, tidx, **kw)
     for x, y in zip(a, b):
         assert torch.equal(x, y)
-    assert set(work) == {"buckets", "candidates", "text_bytes"}
+    assert set(work) == {"buckets", "candidates", "text_bytes", "stored"}
     assert all(isinstance(v, int) for v in work.values())
     steps = int(a[3][:, 3].sum())
     assert steps <= work["buckets"] <= steps * tidx.ht_probes
-    assert work["candidates"] >= int(a[2].sum()) > 0
+    assert work["candidates"] >= work["stored"] >= int(a[2].sum()) > 0
     assert work["text_bytes"] >= tidx.k * int(a[2].sum())
     assert work["text_bytes"] <= work["candidates"] * (U + 1)
+
+
+def test_index_text_is_padded_and_hits_are_unchanged(toy_world):
+    """The uploaded text carries TEXT_PAD trailing bytes of code 4 behind
+    the true text, `n_text` stays the true length, and the hits of reads
+    that end on or run past the text's last base are those of the XLA
+    kernel (which knows no padding)."""
+    from sailfish_tpu_torch.index.device import TEXT_PAD
+
+    idx = toy_world["idx"]
+    tidx = TorchIndex.from_quasi_index(port_index(idx), "cpu")
+    n = len(idx.codes)
+    assert TEXT_PAD == 16 and tidx.n_text == n
+    assert tidx.codes.shape == (n + TEXT_PAD,)
+    np.testing.assert_array_equal(tidx.codes[:n].numpy(), idx.codes)
+    assert (tidx.codes[n - 1:] == 4).all()
+    assert tidx.sa.shape == (n,) and tidx.txp_of_pos.shape == (n,)
+
+    last = toy_world["seqs"][-1]
+    rng = np.random.default_rng(29)
+    reads = [last[len(last) - U:],
+             np.concatenate([last[len(last) - 40:],
+                             rng.integers(0, 4, U - 40).astype(np.uint8)])]
+    codes = np.full((2, L), 4, np.uint8)
+    for i, m in enumerate(reads):
+        codes[i, :U] = m
+    lens = np.full(2, U, np.int32)
+    kw = dict(cand_cap=16, max_mmps=4, max_steps=L, skip_jump=False)
+    dev = DeviceMapperBackend(idx, QuantOpts())
+    ref = jax_map(dev.text, jax_lanes(jnp.asarray(codes), jnp.asarray(lens),
+                                      idx.prefix_bases),
+                  k=idx.k, prefix_bases=idx.prefix_bases, use_hash=True,
+                  ht_probes=dev.ht_probes, ht_bits=dev.ht_bits, **kw)
+    port = _port(toy_world, codes, lens, **kw)
+    _assert_same(port, ref)
+    # both reads map, forward, to the last transcript; the second's match
+    # ends at the text's final separator
+    assert port["valid"][:2].any(axis=1).all()
+    assert port["mlen"][0] == U and port["mlen"][1] == 40

@@ -20,6 +20,64 @@ def port_index(idx) -> QuasiIndex:
         prefix_bases=idx.prefix_bases)
 
 
+def risk_reads(seqs, k, L, seed):
+    """Reads that a windowed, chunked scan can get wrong, cut from the
+    transcripts `seqs` (uint8 code arrays in text order, each at least L
+    bases): (codes (n, L) uint8 padded with code 4, lens (n,) int32).
+
+      - ragged lengths: k - 1, k, L - 1, L and some between
+      - reads that end on the last base of the last transcript, and reads
+        that run past it (their match ends at the text's final separator)
+      - an N at the first, the 16th and the last base of a k-mer, and at
+        the read's last base
+      - a read across two transcripts with an N where the text has its
+        separator: an N ends a match even against a text code 4
+      - a substitution every 33 bases, so that under 17 <= k <= 31 only
+        a few k-mers per read are in the table and the miss chains
+        between them cross a 32-position probe window
+      - clean reads, which map on their first probe
+    chip_smoke.py carries a copy of this function."""
+    rng = np.random.default_rng(seed)
+    out = []
+
+    def cut(n):
+        s = seqs[int(rng.integers(0, len(seqs)))]
+        p = int(rng.integers(0, len(s) - n + 1))
+        return s[p:p + n].copy()
+
+    for n in (k - 1, k, k + 1, L - 1, L, (k + L) // 2):
+        out += [cut(n) for _ in range(3)]
+    last = seqs[-1]
+    for n in (L, L - 1, k, k + 9):
+        out.append(last[len(last) - n:].copy())
+    for keep in (k, k + 5, L // 2):
+        tail = rng.integers(0, 4, L - keep).astype(np.uint8)
+        out.append(np.concatenate([last[len(last) - keep:], tail]))
+    for p0 in (0, 7, L - k):
+        for at in (p0, p0 + 15, p0 + k - 1):
+            m = cut(L)
+            m[at] = 4
+            out.append(m)
+    for n in (L, L - 3):
+        m = cut(n)
+        m[n - 1] = 4
+        out.append(m)
+    for t in (0, int(rng.integers(0, len(seqs) - 1))):
+        m = np.concatenate([seqs[t][len(seqs[t]) - k - 9:], [4],
+                            seqs[t + 1][:L - k - 10]]).astype(np.uint8)
+        out.append(m)
+    for first in (16, 0, 32):
+        for _ in range(3):
+            m = cut(L)
+            m[first::33] = (m[first::33] + 1) % 4
+            out.append(m)
+    out += [cut(L) for _ in range(4)]
+    codes = np.full((len(out), L), 4, np.uint8)
+    for i, m in enumerate(out):
+        codes[i, :len(m)] = m
+    return codes, np.array([len(m) for m in out], np.int32)
+
+
 def port_batch(b) -> FastqBatch:
     return FastqBatch(codes=np.asarray(b.codes), lens=np.asarray(b.lens))
 
