@@ -55,7 +55,28 @@ result line):
      rerun on the CPU must agree), `quant -l U -r` on their first mates
      as a single-end library, and `quant -l IU` on the paired 152 bp
      reads
-  8. the kernel table line, the nvidia-smi line, then the result line
+  8. bias: on the oracle sample of phase 5, the device backend's bias
+     observations (6-mer samples with --biasCorrect, the GC histogram
+     with --gcBiasCorrect) equal the refimpl backend's per-hit replay,
+     integer for integer; the ms they add to a batch's device work;
+     then `quant -l IU --biasCorrect` and `quant -l IU --gcBiasCorrect`
+     on the paired 100 bp library through the CLI (effective lengths
+     finite and positive, `update_effective_lengths` ran, the observed
+     files add up); then `update_effective_lengths` on the card against
+     the same function on the CPU on the world's first transcripts,
+     rtol 1e-9
+  9. resume and samplers, from the eq-class dump of phase 7's paired
+     run, so that nothing is mapped twice: `--resumeFromEq` alone
+     (quant.sf equal to the dumping run's), with `--numBootstraps 16`,
+     with `--numBootstraps 16 --useVBOpt` and with `--numGibbsSamples
+     16`: replicates of the right type and length, Gibbs samples that
+     sum to the mapped count exactly, replicate means near the point
+     estimate
+ 10. two libraries in one run (`-l IU -1 .. -2 .. -l U -r ..`): the
+     fragments and classes of the two single-library runs of phase 7
+     added up; and `--checkpointInterval` on the paired run: a
+     checkpoint after each batch, the final classes unchanged
+ 11. the kernel table line, the nvidia-smi line, then the result line
 
 `--kernel-only` runs phases 1, 3 and 4 (toolchain, world, kernel vs
 plain) and prints no result line: the quick way to time a change to the
@@ -675,6 +696,7 @@ def phase_oracle(torch, index, tidx, mates, lib, caps):
             f"refimpl backend (port {t_port:.2f}s, oracle {t_ref:.1f}s)")
     if 2 in ports:
         require(ports[2][1] > 0, "the C = 2 pass escalated no fragment")
+    return ref_br
 
 
 def _device_us(evt) -> float:
@@ -857,6 +879,452 @@ def phase_end_to_end(torch, cli, wdir, idx_dir, tag, lib, mates, batch,
     return launches
 
 
+
+def phase_bias_oracle(torch, index, tidx, mates, ref_br, card):
+    """Bias observations of the device backend against the refimpl
+    backend's per-hit replay on the paired oracle sample (`ref_br` is
+    that sample's refimpl mapping from phase_oracle): read_bias_counts
+    and observed_gc equal integer for integer, also through the
+    escalation pass."""
+    from sailfish_tpu_torch.config import QuantOpts
+    from sailfish_tpu_torch.libformat import parse_library_format
+    from sailfish_tpu_torch.map.pipeline import (
+        DeviceMapperBackend,
+        RefMapperBackend,
+    )
+    from sailfish_tpu_torch.stats.bias import BiasState
+
+    exp = parse_library_format("IU")
+    b1, b2 = (_fastq_batch(m) for m in mates)
+    for flags, cap in ((dict(bias_correct=True), 64),
+                       (dict(gc_bias_correct=True), 64),
+                       (dict(bias_correct=True), 2),
+                       (dict(gc_bias_correct=True), 2)):
+        opts = QuantOpts(hit_capacity=cap, hit_capacity_max=1024, **flags)
+        oracle = RefMapperBackend(index, opts)
+        want = BiasState(opts)
+        want.observe_batch(index, b1, oracle.finish_batch_fast(
+            ref_br, oracle.accumulator()))
+        port = DeviceMapperBackend(index, opts, tidx.device, tindex=tidx)
+        bs = port.finish_batch_fast(port.submit_pe(b1, b2, exp),
+                                    port.accumulator())
+        got = BiasState(opts)
+        got.observe_batch(index, b1, bs)
+        what = "--biasCorrect" if flags.get("bias_correct") \
+            else "--gcBiasCorrect"
+        for f in ("read_bias_counts", "observed_gc"):
+            a, b = getattr(got, f), getattr(want, f)
+            require(np.array_equal(a, b), f"bias oracle {what} "
+                    f"--hitCapacity {cap}: {f} differs from the refimpl "
+                    f"backend's in {int((a != b).sum())} bins")
+        require(got.remaining_bias_samples == want.remaining_bias_samples,
+                f"bias oracle {what}: sample budgets differ")
+        n_obs = (int(got.read_bias_counts.sum()) - 4096
+                 if flags.get("bias_correct") else int(got.observed_gc.sum()))
+        require(n_obs > b1.count // 2, f"bias oracle {what}: only {n_obs} "
+                f"observations from {b1.count} fragments")
+        if not flags.get("bias_correct"):
+            require(n_obs == got.gc_slots, f"GC histogram sums to {n_obs}, "
+                    f"the device counted {got.gc_slots} slots")
+        require(cap != 2 or bs.num_escalated > 0,
+                "the C = 2 pass escalated no fragment")
+        say(f"bias oracle {what} --hitCapacity {cap}: {b1.count} paired "
+            f"fragments ({bs.num_escalated} escalated), {n_obs} observations,"
+            f" read_bias_counts and observed_gc identical to the refimpl "
+            f"backend's [{card}]")
+
+
+def phase_bias_stage(torch, index, tidx, batch, card):
+    """What bias observation adds to a batch's device work
+    (`map_prefetched`, closed by a synchronize) at the main path's
+    batch size."""
+    from sailfish_tpu_torch.config import QuantOpts
+    from sailfish_tpu_torch.libformat import parse_library_format
+    from sailfish_tpu_torch.map.pipeline import DeviceMapperBackend
+
+    exp = parse_library_format("IU")
+    b1, b2 = (_fastq_batch(m) for m in batch)
+    ms = {}
+    for name, flags in (("off", {}), ("--biasCorrect", {"bias_correct": True}),
+                        ("--gcBiasCorrect", {"gc_bias_correct": True})):
+        be = DeviceMapperBackend(
+            index, QuantOpts(hit_capacity=64, hit_capacity_max=1024, **flags),
+            tidx.device, tindex=tidx)
+        pf = be.prefetch_pe(b1, b2)
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            be.map_prefetched(pf, exp)
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+        ms[name] = min(times[1:])
+        del be
+        torch.cuda.empty_cache()
+    say(f"stage map_prefetched with bias observation: off {ms['off']:.3f} "
+        f"ms, --biasCorrect {ms['--biasCorrect']:.3f} ms "
+        f"({ms['--biasCorrect'] - ms['off']:+.3f}), --gcBiasCorrect "
+        f"{ms['--gcBiasCorrect']:.3f} ms "
+        f"({ms['--gcBiasCorrect'] - ms['off']:+.3f}) [{b1.count} "
+        f"fragments/batch, best of 2 after a first call, {card}]")
+
+
+def _gz(path, dtype):
+    import gzip
+
+    with gzip.open(path) as fh:
+        return np.frombuffer(fh.read(), dtype=dtype)
+
+
+def _quant_sf(out):
+    with open(os.path.join(out, "quant.sf")) as fh:
+        rows = [ln.rstrip("\n").split("\t") for ln in fh][1:]
+    return np.array([[float(x) for x in r[1:]] for r in rows])
+
+
+def _done_stats(out):
+    """The `done: {...}` record a CLI run logs last."""
+    with open(os.path.join(out, "logs", "sailfish_quant.log")) as fh:
+        lines = [ln for ln in fh if "done: " in ln]
+    return json.loads(lines[-1].split("done: ", 1)[1])
+
+
+def run_quant_cli(cli, wdir, idx_dir, tag, argv, *, maps: bool):
+    """One `quant` through the CLI entry point with the scan kernel's
+    launch count set to 0 before and read after.  A run that maps must
+    launch the kernel; a resumed run must not.  Returns (output dir,
+    meta_info.json, launches, the run's logged statistics)."""
+    from sailfish_tpu_torch.map.scan import mmp_scan_cuda
+
+    out = os.path.join(wdir, f"quant_{tag}")
+    shutil.rmtree(out, ignore_errors=True)
+    mmp_scan_cuda.launches = 0
+    rc = cli.main(["quant", "-i", idx_dir, "-o", out, "--hitCapacity", "64",
+                   "--hitCapacityMax", "1024", *argv])
+    launches = mmp_scan_cuda.launches
+    require(rc == 0, f"quant ({tag}) exited {rc}")
+    require((launches > 0) == maps, f"quant ({tag}) launched the scan "
+            f"kernel {launches} times")
+    with open(os.path.join(out, "aux", "meta_info.json")) as fh:
+        meta = json.load(fh)
+    require(meta["quant_timings"]["device"].startswith("cuda"),
+            f"quant ({tag}) ran on {meta['quant_timings']['device']}")
+    vals = _quant_sf(out)
+    require(len(vals) > 0 and np.isfinite(vals).all(),
+            f"quant ({tag}): quant.sf malformed")
+    require(abs(vals[:, 2].sum() - 1e6) <= 1.0,
+            f"quant ({tag}): TPM sums to {vals[:, 2].sum()}")
+    return out, meta, launches, _done_stats(out)
+
+
+def _fld_of(out):
+    """(pdf, cdf) of the FLD a run observed, from its quant_state.json."""
+    from sailfish_tpu_torch.stats.fld import EmpiricalDistribution
+
+    with open(os.path.join(out, "aux", "quant_state.json")) as fh:
+        st = json.load(fh)
+    hist = np.asarray(st["fl_hist"], dtype=np.int64)
+    emp = EmpiricalDistribution(np.arange(len(hist), dtype=np.int64), hist)
+    return (emp.pdfvals, emp.cdfvals), st["num_fwd"], st["num_rc"]
+
+
+def phase_bias_runs(torch, cli, wdir, idx_dir, batch, card):
+    """`quant -l IU --biasCorrect` and `--gcBiasCorrect` on the paired
+    100 bp library of phase 7, through the CLI."""
+    reads = ["-l", "IU", "-1", os.path.join(wdir, "reads_pe100_1.fq"),
+             "-2", os.path.join(wdir, "reads_pe100_2.fq")]
+    outs, launches = {}, {}
+    for tag, flag in (("bias_seq", "--biasCorrect"),
+                      ("bias_gc", "--gcBiasCorrect")):
+        t0 = time.time()
+        out, meta, launches[tag], st = run_quant_cli(
+            cli, wdir, idx_dir, tag,
+            [*reads, flag, "--dumpEq", "--batchSize", str(batch)], maps=True)
+        wall = time.time() - t0
+        qt = meta["quant_timings"]
+        vals = _quant_sf(out)
+        require((vals[:, 1] > 0).all(), f"{flag}: an effective length is "
+                "not positive")
+        plain = _quant_sf(os.path.join(wdir, "quant_pe100"))
+        changed = int((vals[:, 1] != plain[:, 1]).sum())
+        obs = _gz(os.path.join(out, "aux", "observed_bias.gz"), np.int32)
+        gc = _gz(os.path.join(out, "aux", "observed_gc.gz"), np.int32)
+        require(obs.shape == (4096,) and gc.shape == (101,),
+                f"{flag}: observed files malformed")
+        require(int(obs.sum()) == 4096 + qt["bias_samples"],
+                f"{flag}: observed_bias.gz sums to {int(obs.sum())}, not "
+                f"4096 + {qt['bias_samples']} samples")
+        require(int(gc.sum()) == qt["bias_gc_slots"],
+                f"{flag}: observed_gc.gz sums to {int(gc.sum())}, the device "
+                f"counted {qt['bias_gc_slots']} paired slots")
+        n_obs = qt["bias_samples"] if tag == "bias_seq" else int(gc.sum())
+        require(n_obs > meta["num_mapped"] // 2, f"{flag}: {n_obs} "
+                f"observations from {meta['num_mapped']} mapped fragments")
+        upd = qt["bias_update_seconds"]
+        say(f"quant -l IU {flag}: {meta['num_processed']} fragments, "
+            f"{n_obs} observations, EM {qt['em_iterations']} iterations in "
+            f"{qt['inference_seconds']:.3f}s with {len(upd)} "
+            f"update_effective_lengths calls ({upd} s each, peak "
+            f"{qt['bias_update_peak_bytes'] / 2**30:.3f} GiB allocated "
+            f"during inference), {changed} of {len(vals)} effective lengths "
+            f"changed, kernel launches {launches[tag]}, batch ms "
+            f"{qt['batch_ms']}, CLI wall {wall:.1f}s [{card}]")
+        outs[tag] = (out, meta, len(upd))
+    return outs, launches
+
+
+def phase_bias_update(torch, cut, full_text_index, outs, card):
+    """`update_effective_lengths` on the card against the same function
+    on the CPU, rtol 1e-9, on the world's first transcripts (`cut`: their
+    text, offsets and lengths) with the observations, abundances,
+    effective lengths and FLD of the CLI runs.  A run whose EM converged
+    before iteration 50 never called the function: it is then also
+    called once at full width on that run's final alphas, so that it is
+    exercised and timed."""
+    from sailfish_tpu_torch.config import QuantOpts
+    from sailfish_tpu_torch.stats.bias import (
+        BiasState,
+        make_bias_text,
+        update_effective_lengths,
+    )
+
+    nt = len(cut.txp_lens)
+    for tag, flags in (("bias_seq", dict(bias_correct=True)),
+                       ("bias_gc", dict(gc_bias_correct=True))):
+        out, meta, n_updates = outs[tag]
+        opts = QuantOpts(**flags)
+        vals = _quant_sf(os.path.join(os.path.dirname(out), "quant_pe100"))
+        fld, num_fwd, num_rc = _fld_of(out)
+        obs = _gz(os.path.join(out, "aux", "observed_bias.gz"), np.int32)
+        gc = _gz(os.path.join(out, "aux", "observed_gc.gz"), np.int32)
+
+        def run(index, device, sl):
+            state = BiasState(opts)
+            state.read_bias_counts = obs.astype(np.int64)
+            state.observed_gc = gc.astype(np.int64)
+            text = make_bias_text(index, device, opts)
+            if device == "cuda":
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            eff = update_effective_lengths(
+                opts, text, state, fld, vals[sl, 1], vals[sl, 3], num_fwd,
+                num_rc)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            return eff, state, time.perf_counter() - t0
+
+        sl = slice(0, nt)
+        g, sg, t_g = run(cut, "cuda", sl)
+        c, sc, t_c = run(cut, "cpu", sl)
+        active = int((vals[sl, 3] >= 1e-8).sum())
+        require(active > 0 and ((sg.expected_seq_bias != 1).any()
+                                or (sg.expected_gc != 1).any()),
+                f"update_effective_lengths {tag}: no transcript of the cut "
+                "is active")
+        changed = int((g != vals[sl, 1]).sum())
+        for name, a, b in (("effective lengths", g, c),
+                           ("expected_seq_bias", sg.expected_seq_bias,
+                            sc.expected_seq_bias),
+                           ("expected_gc", sg.expected_gc, sc.expected_gc)):
+            require(np.allclose(a, b, rtol=1e-9, atol=0),
+                    f"update_effective_lengths {tag}: {name} differ between "
+                    "cuda and cpu beyond rtol 1e-9")
+        rel = float(np.max(np.abs(g - c) / np.abs(c)))
+        say(f"update_effective_lengths {tag} cuda vs cpu: first {nt} "
+            f"transcripts ({len(cut.codes)} text positions, {active} "
+            f"active, {changed} effective lengths changed), rtol 1e-9 holds "
+            f"(max rel diff {rel:.3g}); cuda "
+            f"{t_g:.3f}s, cpu {t_c:.3f}s [{card}]")
+        if n_updates == 0:
+            eff, _, t_full = run(full_text_index, "cuda", slice(None))
+            require(np.isfinite(eff).all() and (eff > 0).all(),
+                    f"update_effective_lengths {tag} at full width: bad "
+                    "effective lengths")
+            say(f"update_effective_lengths {tag} at full width, called "
+                f"directly (the run's EM converged at iteration 50, before "
+                f"its first update): {t_full:.3f}s, peak "
+                f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB "
+                f"allocated [{card}]")
+
+
+def _rel_dev(mat, point, sel):
+    """|mean over the samples - point| / point on the transcripts `sel`."""
+    return np.abs(mat.mean(axis=0)[sel] / point[sel] - 1)
+
+
+def phase_resume_samplers(torch, cli, wdir, idx_dir, card):
+    """From the eq-class dump of the paired run of phase 7: plain resume,
+    bootstrap (EM and VBEM) and Gibbs, each through the CLI."""
+    from sailfish_tpu_torch.eqclass.io import read_eq_classes
+    from sailfish_tpu_torch.infer.gibbs import (
+        _build_schedule,
+        color_classes,
+        schedule_launches,
+    )
+
+    src = os.path.join(wdir, "quant_pe100")
+    base = _quant_sf(src)
+    resume = ["-l", "IU", "--resumeFromEq", src]
+    out, meta, _, st = run_quant_cli(cli, wdir, idx_dir, "resumed", resume,
+                                     maps=False)
+    got = _quant_sf(out)
+    require(np.allclose(got[:, 3], base[:, 3], rtol=1e-9, atol=1e-9)
+            and np.array_equal(got[:, 1], base[:, 1]),
+            "the resumed run's quant.sf differs from the dumping run's")
+    with open(os.path.join(src, "aux", "meta_info.json")) as fh:
+        src_meta = json.load(fh)
+    require(meta["num_processed"] == src_meta["num_processed"]
+            and meta["num_mapped"] == src_meta["num_mapped"],
+            "the resumed run's counters differ from the dumping run's")
+    say(f"resume: --resumeFromEq of the paired run's dump gives its "
+        f"quant.sf (NumReads rtol 1e-9, effective lengths equal: the FLD "
+        f"came back from quant_state.json), {meta['num_mapped']} mapped, "
+        f"0 kernel launches [{card}]")
+    T, mapped = len(base), meta["num_mapped"]
+    busy = base[:, 3] > 100
+
+    def samples(tag, flags, dtype):
+        out, meta, _, st = run_quant_cli(cli, wdir, idx_dir, tag,
+                                         [*resume, *flags], maps=False)
+        mat = _gz(os.path.join(out, "aux", "bootstrap", "bootstraps.gz"),
+                  dtype)
+        require(mat.shape == (16 * T,), f"{tag}: bootstraps.gz holds "
+                f"{mat.shape[0]} values of {np.dtype(dtype).name}, not 16 x "
+                f"{T}")
+        return mat.reshape(16, T), _quant_sf(out)[:, 3], meta, st
+
+    for tag, flags, rtol in (("boot_em", [], 1e-6),
+                             ("boot_vbem", ["--useVBOpt"], 2e-2)):
+        mat, point, meta, st = samples(
+            tag, ["--numBootstraps", "16", *flags], np.float64)
+        require(meta["samp_type"] == "bootstrap"
+                and meta["num_bootstraps"] == 16, f"{tag}: meta_info.json "
+                f"says {meta['samp_type']}, {meta['num_bootstraps']}")
+        dev_sum = float(np.abs(mat.sum(axis=1) / mapped - 1).max())
+        require(dev_sum <= rtol, f"{tag}: a replicate sums to the mapped "
+                f"count only within {dev_sum:.3g} (rtol {rtol})")
+        sel = point > 100
+        dev_mean = _rel_dev(mat, point, sel).max(initial=0.0)
+        require(dev_mean <= 0.15, f"{tag}: the replicate mean is off the "
+                f"point estimate by {dev_mean:.3f} on a transcript with "
+                "more than 100 reads")
+        # the world spreads its fragments thin, so few transcripts pass
+        # 100 reads: over all of them the replicate mean must at least
+        # follow the point estimate (VBEM replicates are sparser than
+        # their point estimate; the readings are printed)
+        mid = float(np.median(_rel_dev(mat, point, point > 10)))
+        r = float(np.corrcoef(mat.mean(axis=0), point)[0, 1])
+        require(r >= 0.5, f"{tag}: replicate means and point estimates "
+                f"correlate at {r:.3f} only")
+        require(float(mat.std(axis=0).max()) > 0, f"{tag}: replicates equal")
+        say(f"bootstrap {' '.join(flags) or 'EM'}: 16 replicates of {T} "
+            f"float64 in {st['sampler_seconds']:.3f}s "
+            f"({16 / st['sampler_seconds']:.2f} replicates/s, drawing "
+            f"included); sums within {dev_sum:.3g} of {mapped} mapped, mean "
+            f"within {dev_mean:.4f} of the point estimate on "
+            f"{int(sel.sum())} transcripts over 100 reads, median deviation "
+            f"{mid:.4f} on {int((point > 10).sum())} over 10 reads, "
+            f"correlation {r:.4f} over all [{card}]")
+
+    mat, point, meta, st = samples("gibbs", ["--numGibbsSamples", "16"],
+                                   np.int32)
+    require(meta["samp_type"] == "gibbs", f"gibbs: meta_info.json says "
+            f"{meta['samp_type']}")
+    require((mat.sum(axis=1, dtype=np.int64) == mapped).all(),
+            "a Gibbs sample does not sum to the mapped count")
+    require((mat >= 0).all() and float(mat.std(axis=0).max()) > 0,
+            "Gibbs samples negative or all equal")
+    dev_mean = _rel_dev(mat, base[:, 3], busy).max(initial=0.0)
+    mid = float(np.median(_rel_dev(mat, base[:, 3], base[:, 3] > 10)))
+    _, eq = read_eq_classes(os.path.join(src, "aux", "eq_classes.txt"))
+    size = schedule_launches(_build_schedule(eq, color_classes(eq)))
+    # 16 samples from 4 chains: 4 sweeps of 10 rounds for each chain
+    launches = size["launches_per_round"] * 10 * 4 * 4
+    say(f"gibbs: 16 samples of {T} int32 in {st['sampler_seconds']:.3f}s "
+        f"({16 / st['sampler_seconds']:.2f} samples/s, schedule and init "
+        f"included), each sums to {mapped} exactly, mean within "
+        f"{dev_mean:.4f} of the point estimate on {int(busy.sum())} "
+        f"transcripts over 100 reads, median deviation {mid:.4f} on those "
+        f"over 10 reads; schedule {size['waves']} waves in "
+        f"tiers {size['tiers']}, {size['chain_steps']} chain steps a round: "
+        f"{size['launches_per_round']} launches a round and chain, "
+        f"{launches} for the 16 samples (4 chains x 4 sweeps x 10 rounds) "
+        f"[{card}]")
+
+
+def phase_libraries_checkpoint(torch, cli, wdir, idx_dir, batch, card):
+    """Two libraries in one run against the two single-library runs of
+    phase 7, and --checkpointInterval on the paired run."""
+    import sailfish_tpu_torch.quant as quant
+    from sailfish_tpu_torch.eqclass.io import merge_eq_dumps, read_eq_classes
+
+    def classes(eq):
+        return dict(zip(eq.labels(), eq.counts.tolist()))
+
+    def dump(tag):
+        return os.path.join(wdir, f"quant_{tag}", "aux", "eq_classes.txt")
+
+    m1, m2 = (os.path.join(wdir, f"reads_pe100_{i}.fq") for i in (1, 2))
+    se = os.path.join(wdir, "reads_se100_1.fq")
+    launches = {}
+    out, meta, launches["two_libraries"], _ = run_quant_cli(
+        cli, wdir, idx_dir, "two_libraries",
+        ["-l", "IU", "-1", m1, "-2", m2, "-l", "U", "-r", se, "--dumpEq",
+         "--batchSize", str(batch)], maps=True)
+    singles = []
+    for tag in ("pe100", "se100"):
+        with open(os.path.join(wdir, f"quant_{tag}", "aux",
+                               "meta_info.json")) as fh:
+            singles.append(json.load(fh))
+    for key in ("num_processed", "num_mapped"):
+        require(meta[key] == sum(s[key] for s in singles),
+                f"two libraries: {key} {meta[key]} is not the sum of the "
+                "single-library runs'")
+    _, want = merge_eq_dumps([dump("pe100"), dump("se100")])
+    _, got = read_eq_classes(dump("two_libraries"))
+    require(classes(got) == classes(want), "two libraries: eq_classes.txt "
+            "is not the class-wise sum of the single-library runs' dumps")
+    with open(os.path.join(out, "lib_format_counts.json")) as fh:
+        require(json.load(fh)["expected_format"] == "IU;U",
+                "two libraries: expected_format is not IU;U")
+    say(f"two libraries -l IU -1 -2 -l U -r: {meta['num_processed']} "
+        f"fragments = {singles[0]['num_processed']} + "
+        f"{singles[1]['num_processed']}, {got.num_classes} eq classes equal "
+        f"to the sum of the two runs' dumps, kernel launches "
+        f"{launches['two_libraries']} [{card}]")
+
+    seen = []
+    real = quant._write_checkpoint
+
+    def recording(aux_path, names, eq, state):
+        real(aux_path, names, eq, state)
+        seen.append((int(state.num_observed), eq.total_count(), all(
+            os.path.exists(os.path.join(aux_path, f))
+            for f in ("eq_classes.txt", "quant_state.json"))))
+
+    quant._write_checkpoint = recording
+    try:
+        out, meta, launches["checkpoint"], _ = run_quant_cli(
+            cli, wdir, idx_dir, "checkpoint",
+            ["-l", "IU", "-1", m1, "-2", m2, "--checkpointInterval",
+             str(batch), "--dumpEq", "--batchSize", str(batch)], maps=True)
+    finally:
+        quant._write_checkpoint = real
+    require(len(seen) >= 2 and seen[0][0] == batch and seen[0][2]
+            and 0 < seen[0][1] < seen[-1][1],
+            f"checkpoints: {seen}, none after the first batch of {batch}")
+    _, got = read_eq_classes(dump("checkpoint"))
+    _, want = read_eq_classes(dump("pe100"))
+    require(classes(got) == classes(want), "the checkpointed run's "
+            "eq_classes.txt differs from the run's without checkpoints")
+    say(f"checkpoints --checkpointInterval {batch}: written at "
+        f"{[n for n, _, _ in seen]} fragments (the first holds "
+        f"{seen[0][1]} mapped), final eq_classes.txt equal to the run's "
+        f"without, kernel launches {launches['checkpoint']} [{card}]")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--txps", type=int, default=200_000)
@@ -865,6 +1333,9 @@ def main(argv=None) -> int:
     ap.add_argument("--batch", type=int, default=65536)
     ap.add_argument("--kernel-frags", type=int, default=8192)
     ap.add_argument("--oracle-frags", type=int, default=2048)
+    ap.add_argument("--bias-txps", type=int, default=2000,
+                    help="transcripts of the card-against-CPU run of "
+                    "update_effective_lengths")
     ap.add_argument("--kernel-only", action="store_true",
                     help="stop after the kernel comparison; no result line")
     args = ap.parse_args(argv)
@@ -942,15 +1413,30 @@ def main(argv=None) -> int:
             say(json.dumps({"scan_shapes": kv}))
             say(smi)
             return 0
-        phase_oracle(torch, index, tidx, tuple(m[:of] for m in batches[0]),
-                     "IU", (64, 2))
+        sample = tuple(m[:of] for m in batches[0])
+        ref_br = phase_oracle(torch, index, tidx, sample, "IU", (64, 2))
         phase_oracle(torch, index, tidx, (batches[0][0][:of],), "U", (64,))
         phase_oracle(torch, index, tidx,
                      tuple(m[:of // 2] for m in long_batch), "IU", (64,))
         note("oracle done")
         profiled_ms = phase_stages(torch, index, tidx, batches, smi)
         note("stages done")
-        del tidx, index
+        phase_bias_oracle(torch, index, tidx, sample, ref_br, smi)
+        phase_bias_stage(torch, index, tidx, batches[-1], smi)
+        note("bias oracle done")
+        # the text of the first transcripts, for the card-against-CPU run
+        # of update_effective_lengths
+        import types
+        nt = min(args.bias_txps, index.num_transcripts)
+        end = int(index.txp_offsets[nt - 1] + index.txp_lens[nt - 1]) + 1
+        cut = types.SimpleNamespace(
+            codes=index.codes[:end].copy(),
+            txp_offsets=index.txp_offsets[:nt].copy(),
+            txp_lens=index.txp_lens[:nt].copy())
+        whole = types.SimpleNamespace(
+            codes=index.codes, txp_offsets=index.txp_offsets,
+            txp_lens=index.txp_lens)
+        del tidx, index, ref_br
         torch.cuda.empty_cache()
         launches = phase_end_to_end(
             torch, cli, wdir, idx_dir, "pe100", "IU",
@@ -963,6 +1449,15 @@ def main(argv=None) -> int:
             torch, cli, wdir, idx_dir, f"pe{LONG_READ_LEN}", "IU",
             long_batch, args.batch, smi)
         note("end to end done")
+        bias_outs, more_launches = phase_bias_runs(torch, cli, wdir, idx_dir,
+                                                   args.batch, smi)
+        phase_bias_update(torch, cut, whole, bias_outs, smi)
+        note("bias done")
+        phase_resume_samplers(torch, cli, wdir, idx_dir, smi)
+        note("resume and samplers done")
+        more_launches.update(phase_libraries_checkpoint(
+            torch, cli, wdir, idx_dir, args.batch, smi))
+        note("libraries and checkpoints done")
         require("jax" not in sys.modules
                 and "sailfish_tpu" not in sys.modules,
                 "jax or the JAX package was imported")
@@ -985,6 +1480,11 @@ def main(argv=None) -> int:
         "bound_ms": main_kv["bound_ms"], "bound_by": main_kv["bound_by"],
         "library_ms": None,
         "profiled_kernel_ms_per_launch": profiled_ms,
+        # the scan kernel's count in each later CLI run that maps (bias,
+        # two libraries, checkpoints), set to 0 before each
+        "launches_by_run": {"pe100": launches, "se100": launches_se,
+                            f"pe{LONG_READ_LEN}": launches_long,
+                            **more_launches},
         "shapes": kv,
     })
     say(json.dumps({"kernels": kernels}))

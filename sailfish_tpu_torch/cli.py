@@ -1,5 +1,5 @@
 """Command-line interface of the torch port:
-``python -m sailfish_tpu_torch.cli {index, quant}``.
+``python -m sailfish_tpu_torch.cli {index, quant, mergeeq}``.
 
 The flag surface is sailfish_tpu/cli.py's (the parsers below are copies
 of its parsers) plus `--device {cuda,cpu}`.  `quant` runs on the first
@@ -8,9 +8,13 @@ when torch sees none; `--device cpu` asks for the CPU, where the kernels'
 plain torch versions run.  The device is logged and recorded in
 aux/meta_info.json.  `--backend refimpl` maps on the host with the numpy
 reference mapper (the correctness oracle) and runs EM on the same
-device.  Flags outside the ported slice are refused with an error: bias
-correction, Gibbs sampling, bootstrapping, multiple libraries, sharded
-indexes and multi-host runs, checkpoints and resume.  The TPU path's
+device.  `quant` takes several `-l` libraries, --biasCorrect /
+--gcBiasCorrect, --numBootstraps / --numGibbsSamples,
+--checkpointInterval / --resumeFromEq, and --numShards N --shardId i
+with --mapOnly, whose dumps `mergeeq` adds up.  Refused with a usage
+error: --numShards without --shardId (the launcher that starts the
+shard processes itself), --scanShrink above 1 and --indexShards.  The
+TPU path's
 fast-path tuning knobs and the kernel choice change no output and are
 accepted and ignored.  The op-chain microbenchmark is an entry point of
 its own: ``python -m sailfish_tpu_torch.ubench``.
@@ -62,7 +66,8 @@ def _add_index_parser(sub):
                    help="rebuild even if the index exists")
     p.add_argument("--indexShards", type=int, default=0,
                    help="stripe the index into D standalone shards "
-                        "(refused: not ported yet)")
+                        "(above 1 is refused: sharded indexes are not "
+                        "ported)")
     return p
 
 
@@ -116,10 +121,12 @@ def _add_quant_parser(sub):
                    help="host-side IO/decode workers")
     p.add_argument("--numShards", type=int, default=1,
                    help="multi-host data parallelism: total number of "
-                   "read shards (refused: not ported yet)")
+                   "read shards; give --shardId too (the launcher form "
+                   "without it is refused: not ported)")
     p.add_argument("--shardId", type=int, default=-1,
-                   help="this host's shard index in [0, numShards) "
-                   "(refused: not ported yet)")
+                   help="this host's shard index in [0, numShards): "
+                   "it maps every numShards-th batch; combine the "
+                   "--mapOnly dumps with mergeeq")
     p.add_argument("--mapOnly", action="store_true",
                    help="stop after mapping: write the eq-class dump + "
                    "quant state, skip inference and outputs (the "
@@ -262,6 +269,13 @@ def _parser() -> argparse.ArgumentParser:
     sub = parser.add_subparsers(dest="command", required=True)
     _add_index_parser(sub)
     _add_quant_parser(sub)
+    pm = sub.add_parser(
+        "mergeeq",
+        help="merge eq-class dumps from sharded quant runs into one")
+    pm.add_argument("dumps", nargs="+",
+                    help="eq_classes.txt files or quant output dirs")
+    pm.add_argument("-o", "--output", required=True,
+                    help="merged eq_classes.txt path")
     return parser
 
 
@@ -271,7 +285,21 @@ def main(argv: list[str] | None = None) -> int:
     args = parser.parse_args(argv)
     if args.command == "index":
         return _main_index(parser, args)
+    if args.command == "mergeeq":
+        return _main_mergeeq(args)
     return _main_quant(parser, args, argv)
+
+
+def _main_mergeeq(args) -> int:
+    from .eqclass.io import find_eq_dump, merge_eq_dumps, write_eq_dump
+
+    _setup_logging()
+    paths = [find_eq_dump(d) for d in args.dumps]
+    names, eq = merge_eq_dumps(paths)
+    write_eq_dump(args.output, names, eq)
+    log.info("merged %d dumps -> %d classes (%d fragments)", len(paths),
+             eq.num_classes, eq.total_count())
+    return 0
 
 
 def _main_index(parser, args) -> int:
@@ -303,8 +331,15 @@ def _main_quant(parser, args, argv) -> int:
         lib_type, m1, m2, um, libraries = _flatten_read_args(args, argv)
     except ValueError as e:
         parser.error(str(e))
-    args.libType, args.mates1, args.mates2, args.unmatedReads = (
-        lib_type, m1, m2, um)
+    # cmd_info.json echoes flat values
+    args.libType = ([lib["fmt"] for lib in libraries] if libraries
+                    else lib_type)
+    args.mates1, args.mates2, args.unmatedReads = m1, m2, um
+    if args.numShards > 1 and args.shardId < 0:
+        parser.error("--numShards without --shardId (the launcher that "
+                     "starts the shard processes) is not supported by the "
+                     "torch port yet; run each shard with --shardId i "
+                     "--mapOnly and combine with mergeeq")
     try:
         opts = _quant_opts(args, lib_type, m1, m2, um, libraries)
         check_slice(opts)
@@ -342,6 +377,8 @@ def _quant_opts(args, lib_type, m1, m2, um, libraries) -> QuantOpts:
         use_unsmoothed_fld=args.unsmoothedFLD,
         no_effective_length_correction=args.noEffectiveLengthCorrection,
         bias_correct=args.biasCorrect, gc_bias_correct=args.gcBiasCorrect,
+        num_bias_samples=args.numBiasSamples, gc_samp_factor=args.gcSizeSamp,
+        pdf_samp_factor=args.gcSpeedSamp,
         use_vb_opt=args.useVBOpt, num_gibbs_samples=args.numGibbsSamples,
         num_bootstraps=args.numBootstraps, dump_eq=args.dumpEq,
         checkpoint_interval=args.checkpointInterval,

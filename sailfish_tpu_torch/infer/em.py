@@ -14,6 +14,13 @@ Each iteration is two `index_add_` scatters over the CSR membership in
 float64.  On CUDA those are atomics, so their summation order (and the
 last bits of the sums) differ from the CPU's.  The convergence test
 needs a host sync, which is taken only once `min_iter` is reached.
+
+The steps take any number of leading axes: one alpha vector (T,) is the
+main EM; (R, T) with per-replicate class counts (R, C) is the stacked
+bootstrap EM of infer/bootstrap.py.  `run_em` also continues from given
+alphas over a `min_iter`/`max_iter` segment, which is how
+stats/bias.py `run_em_with_bias` recomputes effective lengths between
+segments.
 """
 
 from __future__ import annotations
@@ -36,6 +43,12 @@ class EMResult:
     num_iterations: int
     max_rel_diff: float
     converged: bool
+    alphas_raw: np.ndarray | None = None    # the same before truncation
+
+
+def truncation_cutoff(use_vbem: bool) -> float:
+    """Final alphas at or below this become 0."""
+    return (0.01 + 1e-8) if use_vbem else 1e-8
 
 
 def class_weights(eq: EqClasses, eff_lens: np.ndarray) -> np.ndarray:
@@ -48,10 +61,11 @@ def class_weights(eq: EqClasses, eff_lens: np.ndarray) -> np.ndarray:
 
 
 class _Problem:
-    """The EM's device-resident inputs."""
+    """The EM's device-resident inputs.  `counts` replaces the classes'
+    own counts, (C,) or stacked (R, C)."""
 
     def __init__(self, eq: EqClasses, eff_lens, num_txps: int,
-                 device: torch.device, dtype: torch.dtype):
+                 device: torch.device, dtype: torch.dtype, counts=None):
         def up(a, dt):
             return torch.as_tensor(np.ascontiguousarray(a), dtype=dt,
                                    device=device)
@@ -59,29 +73,32 @@ class _Problem:
         self.num_txps = num_txps
         self.members = up(eq.members, torch.int64)
         self.com = up(eq.class_of_member(), torch.int64)
-        self.counts = up(eq.counts, dtype)
+        self.counts = up(eq.counts, dtype) if counts is None else counts
         self.weights = up(class_weights(eq, eff_lens), dtype)
         self.singleton = up(eq.class_sizes() == 1, torch.bool)
         self.min_w = (_DENORM_MIN64 if dtype == torch.float64
                       else float(np.finfo(np.float32).tiny))
         # singleton classes add the same amount every iteration
         sing = torch.where(self.singleton, self.counts, 0.0)
-        self.sing_out = self._to_txps(sing[self.com])
+        self.sing_out = self._scatter(sing[..., self.com], self.members,
+                                      num_txps)
 
-    def _to_txps(self, per_member):
-        out = per_member.new_zeros(self.num_txps)
-        return out.index_add_(0, self.members, per_member)
+    @staticmethod
+    def _scatter(src, index, size: int):
+        """Sum `src` (..., M) into (..., size) along the last axis."""
+        out = src.new_zeros(src.shape[:-1] + (size,))
+        return out.index_add_(src.dim() - 1, index, src)
 
     def distribute(self, theta):
         """sum over multi-member classes of count * theta_t w_t / denom,
-        plus the singleton classes' counts."""
-        av = theta[self.members] * self.weights
-        denom = av.new_zeros(self.counts.shape[0]).index_add_(
-            0, self.com, av)
+        plus the singleton classes' counts; theta (..., T)."""
+        av = theta[..., self.members] * self.weights
+        denom = self._scatter(av, self.com, self.singleton.shape[0])
         ok = (denom > self.min_w) & ~self.singleton
         scale = torch.where(ok, self.counts / torch.where(ok, denom, 1.0),
                             0.0)
-        return self._to_txps(av * scale[self.com]) + self.sing_out
+        return (self._scatter(av * scale[..., self.com], self.members,
+                              self.num_txps) + self.sing_out)
 
 
 def _em_step(p: _Problem, alpha):
@@ -89,7 +106,7 @@ def _em_step(p: _Problem, alpha):
 
 
 def _vbem_step(p: _Problem, alpha, prior_alpha: float = 0.01):
-    log_norm = torch.special.digamma(alpha.sum())
+    log_norm = torch.special.digamma(alpha.sum(dim=-1, keepdim=True))
     pos = (alpha > _DENORM_MIN64 if alpha.dtype == torch.float64
            else alpha > 0.0)
     exp_theta = torch.where(
@@ -102,10 +119,12 @@ def _vbem_step(p: _Problem, alpha, prior_alpha: float = 0.01):
 def run_em(eq: EqClasses, eff_lens: np.ndarray, total_mapped: float,
            num_txps: int, *, device, use_vbem: bool = False,
            rel_diff_tol: float = 0.01, max_iter: int = 10000,
-           min_iter: int = 50, dtype: torch.dtype = torch.float64
-           ) -> EMResult:
+           min_iter: int = 50, dtype: torch.dtype = torch.float64,
+           alpha0: np.ndarray | None = None) -> EMResult:
     """Run the collapsed EM/VBEM on `device` to convergence and
-    truncate."""
+    truncate.  `alpha0` continues from given (untruncated) alphas
+    instead of the uniform active init; `total_mapped` is unused
+    then."""
     dev = as_device(device)
     p = _Problem(eq, eff_lens, num_txps, dev, dtype)
     active = np.zeros(num_txps, dtype=bool)
@@ -113,9 +132,9 @@ def run_em(eq: EqClasses, eff_lens: np.ndarray, total_mapped: float,
     num_active = int(active.sum())
     if num_active == 0:
         raise RuntimeError("no transcripts are expressed; mapping failed?")
-    alpha = torch.as_tensor(
-        np.where(active, total_mapped / num_active, 0.0), dtype=dtype,
-        device=dev)
+    if alpha0 is None:
+        alpha0 = np.where(active, total_mapped / num_active, 0.0)
+    alpha = torch.as_tensor(np.asarray(alpha0), dtype=dtype, device=dev)
     step = _vbem_step if use_vbem else _em_step
     prev = None
     it = 0
@@ -135,8 +154,8 @@ def run_em(eq: EqClasses, eff_lens: np.ndarray, total_mapped: float,
         if bool(check.any()):
             rel = (prev - alpha).abs() / torch.where(check, alpha, 1.0)
             max_rel = float(rel[check].max())
-    alphas = alpha.cpu().numpy().astype(np.float64)
-    cutoff = (0.01 + 1e-8) if use_vbem else 1e-8
-    alphas[alphas <= cutoff] = 0.0
-    return EMResult(alphas=alphas, num_iterations=it,
-                    max_rel_diff=max_rel, converged=converged)
+    raw = alpha.cpu().numpy().astype(np.float64)
+    alphas = raw.copy()
+    alphas[alphas <= truncation_cutoff(use_vbem)] = 0.0
+    return EMResult(alphas=alphas, num_iterations=it, max_rel_diff=max_rel,
+                    converged=converged, alphas_raw=raw)

@@ -107,7 +107,8 @@ def merge_and_collapse(hits1_fw, hits1_rc, hits2_fw, hits2_rc, lens1, lens2,
                        cand_cap: int, max_read_occs: int,
                        allow_orphans: bool, allow_dovetail: bool,
                        ignore_compat: bool, enforce_compat: bool,
-                       strict_intersect: bool = False) -> dict:
+                       strict_intersect: bool = False,
+                       return_slots: bool = False) -> dict:
     """Fragment-level merge + label formation (the oriented hit blocks —
     four for a paired-end fragment, read 1's two for a single-end read,
     whose hits2/lens2 arguments are ignored — are merged by one sort on
@@ -116,7 +117,10 @@ def merge_and_collapse(hits1_fw, hits1_rc, hits2_fw, hits2_rc, lens1, lens2,
     (B, W) int32, W = 4C paired-end or 2C single-end
     (PAD-filled), label_len, h1/h2 (int64 holding uint32), mapped,
     num_joint, unique_paired, frag_len, num_fwd, num_rc, overflow,
-    fmt_id, have_compat."""
+    fmt_id, have_compat.  With `return_slots`, also "slots": the (B, W)
+    joint-hit slot tensors the bias model observes (stats/bias.py
+    `bias_observe`): txp, pos, fwd, mpos, mfwd, status, valid, frag_len,
+    and the per-fragment mapped; mpos / mfwd are zeros for single-end."""
     C = cand_cap
     B = hits1_fw["txp"].shape[0]
     dev = hits1_fw["txp"].device
@@ -213,6 +217,8 @@ def merge_and_collapse(hits1_fw, hits1_rc, hits2_fw, hits2_rc, lens1, lens2,
         fwd_hit = fwd
         is_p = torch.zeros((B, W), dtype=torch.bool, device=dev)
         slot_fraglen = torch.zeros((B, W), dtype=torch.int32, device=dev)
+        mpos = torch.zeros((B, W), dtype=torch.int32, device=dev)
+        mfwd = torch.zeros((B, W), dtype=torch.bool, device=dev)
         slot_fmt = (3 << 1) | (torch.where(fwd_hit, 2, 3) << 3)
 
     num_joint = valid.sum(dim=1)
@@ -247,7 +253,7 @@ def merge_and_collapse(hits1_fw, hits1_rc, hits2_fw, hits2_rc, lens1, lens2,
     h1, h2 = hash_labels(label, label_len)
     h1 = torch.where(mapped, h1, M32)
     h2 = torch.where(mapped, h2, M32)
-    return {
+    out = {
         "label": label,
         "label_len": label_len,
         "h1": h1,
@@ -262,6 +268,13 @@ def merge_and_collapse(hits1_fw, hits1_rc, hits2_fw, hits2_rc, lens1, lens2,
         "fmt_id": fmt_id,
         "have_compat": have_compat & mapped,
     }
+    if return_slots:
+        out["slots"] = {
+            "txp": txp, "pos": pos, "fwd": fwd, "mpos": mpos, "mfwd": mfwd,
+            "status": status, "valid": valid, "frag_len": slot_fraglen,
+            "mapped": mapped,
+        }
+    return out
 
 
 def collapse_unique(h1, h2, mapped, label_len):

@@ -9,9 +9,15 @@ counters reduce on the device (`fused_tail`).  The finishers pull
 one counter vector, the unique-class rows and, only for label hashes the
 accumulator has not seen, the exact labels.
 
+With --biasCorrect / --gcBiasCorrect the same pass observes the bias
+model on the device (stats/bias.py `bias_observe` over the merge's
+joint-hit slots): a 6-mer sample per fragment and a GC histogram per
+batch, pulled by the host only through `BatchStats`' lazy functions.
+
 Fragments whose candidate set overflowed `hit_capacity` are remapped by
 the same scan kernel at `effective_hit_capacity()` (the escalation pass,
-`_ESC_ROWS` fragments at a time) and their contribution added.  The
+`_ESC_ROWS` fragments at a time) and their contribution added, bias
+observations included.  The
 JAX package's host-oracle route for that pass does not exist here: the
 card holds the wider outputs.
 
@@ -34,6 +40,7 @@ from ..index.device import TorchIndex
 from ..io.fastq import FastqBatch
 from ..libformat import LibraryFormat, MateStatus, compatible_hit_single
 from ..refimpl.mapper import RefMapper
+from ..stats.bias import bias_observe, make_bias_text
 from .encode import pack_reads, unpack_reads
 from .lanes import map_oriented_lanes
 from .pair import collapse_unique, merge_and_collapse
@@ -54,6 +61,8 @@ class BatchResult:
     frag_lens: np.ndarray
     fmt_counts: np.ndarray
     num_compat: int = 0
+    per_read: list | None = None   # refimpl backend: the ReadMappings,
+                                   # whose joint hits the bias model replays
 
 
 @dataclasses.dataclass
@@ -72,6 +81,11 @@ class BatchStats:
     fld_hist: object               # () -> (max_frag_len,) int64
     fld_details: object            # () -> (frag_lens, unique_paired)
     num_escalated: int = 0         # fragments remapped at the wide capacity
+    # bias observation (stats/bias.py BiasState.observe_batch)
+    seq_samples_fn: object = None  # () -> (n,) int32 6-mer samples, -1 = none
+    gc_hist_fn: object = None      # () -> (101,) int64 GC observations
+    gc_slots: int = 0              # paired slots that qualified for gc_hist
+    per_read: list | None = None   # refimpl backend: the ReadMappings
 
 
 def fmt_args(expected: LibraryFormat):
@@ -92,13 +106,16 @@ def fused_tail(h1f, h1r, h2f, h2r, l1, l2, expected: LibraryFormat, *,
                paired_end: bool = True, cand_cap: int, max_read_occs: int,
                allow_orphans: bool, allow_dovetail: bool, ignore_compat: bool,
                enforce_compat: bool, strict_intersect: bool,
-               max_frag_len: int) -> dict:
+               max_frag_len: int, bias_text: dict | None = None,
+               seq_on: bool = False, gc_on: bool = False) -> dict:
     """merge + collapse + batch reductions, all on the device.
     `scalars` packs the counters into one vector so the per-batch sync is
     a single pull: [0:8] mapped, sum num_joint, fragments with joint
     hits, num_fwd, num_rc, unique classes U, FLD observations,
     library-compatible; [8:72] the observed-format histogram; [72]
-    overflowed fragments."""
+    overflowed fragments; [73] paired slots observed for GC bias.  With
+    `seq_on` / `gc_on` the joint-hit slots go to `bias_observe` and the
+    result carries `seq_samples` and `gc_hist`."""
     orient, strand, se_flags = fmt_args(expected)
     out = merge_and_collapse(
         h1f, h1r, h2f, h2r, l1, l2, orient, strand, se_flags,
@@ -106,7 +123,14 @@ def fused_tail(h1f, h1r, h2f, h2r, l1, l2, expected: LibraryFormat, *,
         max_read_occs=max_read_occs,
         allow_orphans=allow_orphans, allow_dovetail=allow_dovetail,
         ignore_compat=ignore_compat, enforce_compat=enforce_compat,
-        strict_intersect=strict_intersect)
+        strict_intersect=strict_intersect,
+        return_slots=seq_on or gc_on)
+    gc_slots = out["mapped"].new_zeros((), dtype=torch.int64)
+    bias_out = {}
+    if seq_on or gc_on:
+        ss, gh, gc_slots = bias_observe(out["slots"], bias_text, l1, l2,
+                                        gc_on=gc_on, seq_on=seq_on)
+        bias_out = {"seq_samples": ss, "gc_hist": gh}
     uniq, num_u = collapse_unique(out["h1"], out["h2"], out["mapped"],
                                   out["label_len"])
     fl = out["frag_len"]
@@ -125,8 +149,10 @@ def fused_tail(h1f, h1r, h2f, h2r, l1, l2, expected: LibraryFormat, *,
         ]).long(),
         fmthist.long(),
         out["overflow"].sum().long()[None],
+        gc_slots[None],
     ])
     return {
+        **bias_out,
         "scalars": scalars,
         "fldhist": fldhist,
         "uniq": uniq,
@@ -148,16 +174,20 @@ class DeviceMapperBackend:
     _ESC_ROWS = 1024
 
     def __init__(self, index: QuasiIndex, opts: QuantOpts, device, *,
-                 tindex: TorchIndex | None = None):
-        if opts.bias_correct or opts.gc_bias_correct:
-            raise NotImplementedError(
-                "sequence / GC bias correction is not ported yet")
+                 tindex: TorchIndex | None = None,
+                 bias_text: dict | None = None):
         self.device = as_device(device)
         self.opts = opts
         self._index = index
         self.tindex = (tindex if tindex is not None
                        else TorchIndex.from_quasi_index(index, self.device))
         self._escb = None
+        # the text as the bias model reads it, over the index's tensors;
+        # the escalation backend is handed its parent's
+        self.bias_text = bias_text
+        if bias_text is None and (opts.bias_correct or opts.gc_bias_correct):
+            self.bias_text = make_bias_text(index, self.device, opts,
+                                            tindex=self.tindex)
 
     # ---- host -> device ----
     def _upload(self, arr: np.ndarray) -> torch.Tensor:
@@ -247,7 +277,8 @@ class DeviceMapperBackend:
             ignore_compat=o.ignore_lib_compat,
             enforce_compat=o.enforce_lib_compat,
             strict_intersect=o.strict_intersect,
-            max_frag_len=o.max_frag_len)
+            max_frag_len=o.max_frag_len, bias_text=self.bias_text,
+            seq_on=o.bias_correct, gc_on=o.gc_bias_correct)
         b1, b2 = pf["batches"]
         return (res, pf["n"], (b1, b2, expected))
 
@@ -282,7 +313,8 @@ class DeviceMapperBackend:
                 self.opts, hit_capacity=self.opts.effective_hit_capacity(),
                 hit_capacity_max=0, batch_size=self._ESC_ROWS)
             self._escb = DeviceMapperBackend(self._index, opts2, self.device,
-                                             tindex=self.tindex)
+                                             tindex=self.tindex,
+                                             bias_text=self.bias_text)
         return self._escb
 
     def _esc_overflow(self, res, scal, n):
@@ -322,7 +354,12 @@ class DeviceMapperBackend:
             fld_hist=lambda: res["fldhist"].cpu().numpy().astype(np.int64),
             fld_details=lambda: (res["frag_len"][:n].cpu().numpy(),
                                  res["unique_paired"][:n].cpu().numpy()),
+            gc_slots=int(scal[73]),
         )
+        if self.opts.bias_correct:
+            bs.seq_samples_fn = lambda: res["seq_samples"][:n].cpu().numpy()
+        if self.opts.gc_bias_correct:
+            bs.gc_hist_fn = lambda: res["gc_hist"].cpu().numpy()
         idx = self._esc_overflow(res, scal, n)
         if idx is None:
             return bs
@@ -347,6 +384,20 @@ class DeviceMapperBackend:
                 return fls, up
 
             bs.fld_details = details
+            # an overflowed fragment gave no sample in the main pass: it
+            # takes the wide pass's, in its place in file order
+            if bs.seq_samples_fn is not None:
+                def samples(a=bs.seq_samples_fn, b=sub.seq_samples_fn,
+                            ci=ci):
+                    out = a().copy()
+                    out[ci] = b()
+                    return out
+
+                bs.seq_samples_fn = samples
+            if bs.gc_hist_fn is not None:
+                bs.gc_hist_fn = (
+                    lambda a=bs.gc_hist_fn, b=sub.gc_hist_fn: a() + b())
+                bs.gc_slots += sub.gc_slots
         return bs
 
     def finish_batch(self, token) -> BatchResult:
@@ -441,6 +492,7 @@ class RefMapperBackend:
             frag_lens=np.array([rm.frag_len for rm in rms], dtype=np.int64),
             fmt_counts=fmt_counts,
             num_compat=sum(int(rm.compat) for rm in rms),
+            per_read=rms,
         )
 
     submit_pe = map_pe_batch
@@ -464,6 +516,7 @@ class RefMapperBackend:
             fld_hist=lambda: np.bincount(br.frag_lens[sel],
                                          minlength=mfl)[:mfl],
             fld_details=lambda: (br.frag_lens, br.unique_paired),
+            per_read=br.per_read,
         )
 
 

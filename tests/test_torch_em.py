@@ -9,6 +9,7 @@ import pytest
 from sailfish_tpu.eqclass.classes import EqClasses
 from sailfish_tpu.infer.em import run_em as jax_run_em
 from sailfish_tpu_torch.infer.em import run_em
+from torch_port import one_torch_thread  # noqa: F401  (autouse)
 
 
 def _problem(seed: int, num_txps: int = 60, num_classes: int = 150):

@@ -16,6 +16,7 @@ from sailfish_tpu_torch.map.encode import (
     pack_reads,
     unpack_reads,
 )
+from torch_port import one_torch_thread  # noqa: F401  (autouse)
 
 
 def _reads(seed, B=48, L=56):

@@ -40,6 +40,7 @@ from sailfish_tpu_torch.config import QuantOpts
 from sailfish_tpu_torch.refimpl.mapper import RefMapper
 
 from torch_port import port_index, read_text, write_fasta, write_fastq
+from torch_port import one_torch_thread  # noqa: F401  (autouse)
 
 _INDEX_ARRAYS = ("codes", "sa", "packed16", "sep_dist", "table_lo",
                  "txp_of_pos", "txp_offsets", "txp_lens")

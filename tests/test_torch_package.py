@@ -6,6 +6,7 @@ import ast
 import os
 import subprocess
 import sys
+from torch_port import one_torch_thread  # noqa: F401  (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

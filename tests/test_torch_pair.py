@@ -17,6 +17,7 @@ from sailfish_tpu_torch.map.pipeline import fmt_args
 
 from conftest import to_batch
 from torch_port import port_index
+from torch_port import one_torch_thread  # noqa: F401  (autouse)
 
 C = 16
 

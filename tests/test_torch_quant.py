@@ -32,6 +32,7 @@ from torch_port import done_stats as _done_stats
 from torch_port import port_batch, port_index
 from torch_port import read_quant_sf as _read_quant_sf
 from torch_port import write_world as _write_world
+from torch_port import one_torch_thread  # noqa: F401  (autouse)
 
 
 @pytest.fixture(scope="module")
@@ -167,24 +168,31 @@ def test_cli_refimpl_backend_matches_device(toy_world, tmp_path):
     assert int(files["device"][0].split("\n")[1]) > 0
 
 
-@pytest.mark.parametrize("flags", [
-    ["--biasCorrect"], ["--numBootstraps", "2"], ["--numGibbsSamples", "2"],
-    ["--resumeFromEq", "x"], ["--numShards", "2"],
-    ["--checkpointInterval", "10"],
-])
-def test_cli_refuses_flags_outside_slice(tmp_path, flags):
+@pytest.mark.parametrize("argv", [
+    ["quant", "--numShards", "2"],
+    ["quant", "--scanShrink", "2"],
+    ["index", "--indexShards", "2"],
+], ids=["launcher", "scanShrink", "indexShards"])
+def test_cli_refuses_flags_outside_slice(tmp_path, argv):
+    """What is still outside the port: the launcher form of --numShards
+    (no --shardId), the lossy compacted scan, and sharded indexes.  (The
+    flags this list used to hold are quantified now:
+    tests/test_torch_resume.py.)"""
     from sailfish_tpu_torch.cli import main as torch_main
 
+    rest = {"quant": ["-i", str(tmp_path), "-l", "IU", "-1", "a.fq", "-2",
+                      "b.fq", "-o", str(tmp_path / "o")],
+            "index": ["-t", "x.fa", "-o", str(tmp_path / "i")]}[argv[0]]
     with pytest.raises(SystemExit) as ei:
-        torch_main(["quant", "-i", str(tmp_path), "-l", "IU", "-1", "a.fq",
-                    "-2", "b.fq", "-o", str(tmp_path / "o"), *flags])
+        torch_main([argv[0], *rest, *argv[1:]])
     assert ei.value.code == 2
 
 
 def test_cli_refuses_single_end_and_sharded_index(tmp_path):
-    """A single-end libType without -r, a second library, and a sharded
-    index build are refused with a usage error (single-end libraries
-    themselves are quantified: tests/test_torch_se.py)."""
+    """A single-end libType without -r, a paired library with unequal
+    file lists, and a sharded index build are refused with a usage error
+    (single-end libraries and second libraries themselves are
+    quantified: tests/test_torch_se.py, tests/test_torch_resume.py)."""
     from sailfish_tpu_torch.cli import main as torch_main
 
     with pytest.raises(SystemExit) as ei:
@@ -193,8 +201,8 @@ def test_cli_refuses_single_end_and_sharded_index(tmp_path):
     assert ei.value.code == 2
     with pytest.raises(SystemExit) as ei:
         torch_main(["quant", "-i", str(tmp_path), "-l", "IU", "-1", "a.fq",
-                    "-2", "b.fq", "-l", "U", "-r", "c.fq",
-                    "-o", str(tmp_path / "o")])
+                    "-2", "b.fq", "-l", "IU", "-1", "c.fq", "d.fq", "-2",
+                    "e.fq", "-o", str(tmp_path / "o")])
     assert ei.value.code == 2
     with pytest.raises(SystemExit) as ei:
         torch_main(["index", "-t", "x.fa", "-o", str(tmp_path / "i"),

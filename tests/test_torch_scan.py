@@ -21,6 +21,7 @@ from sailfish_tpu_torch.map.lanes import map_oriented_lanes
 from sailfish_tpu_torch.map.scan import mmp_scan, mmp_scan_reference
 
 from torch_port import port_index, risk_reads
+from torch_port import one_torch_thread  # noqa: F401  (autouse)
 
 B, L, U = 64, 56, 50   # tests/test_pallas.py shapes
 RISK_L = 104           # wide enough for miss chains longer than 32

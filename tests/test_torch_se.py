@@ -34,6 +34,7 @@ from torch_port import (
     run_both_clis,
     write_world,
 )
+from torch_port import one_torch_thread  # noqa: F401  (autouse)
 
 C = 16
 

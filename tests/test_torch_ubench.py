@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from sailfish_tpu_torch import ubench
+from torch_port import one_torch_thread  # noqa: F401  (autouse)
 
 SMALL = dict(table_bits=8, sa_bits=8, period_bits=4)
 DEFINED = ("empty", "when8_true", "when8_false", "when8_smem", "select8",

@@ -31,6 +31,7 @@ from torch_port import (
     write_fasta,
     write_fastq,
 )
+from torch_port import one_torch_thread  # noqa: F401  (autouse)
 
 B = 48
 

@@ -5,10 +5,26 @@ or batch, built once, goes through both implementations."""
 import os
 
 import numpy as np
+import pytest
 
 from sailfish_tpu import dna
 from sailfish_tpu_torch.index.builder import QuasiIndex
 from sailfish_tpu_torch.io.fastq import FastqBatch
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The tests' tensors are too small to gain from torch's intra-op
+    threads, and under pytest-xdist those threads fight the other
+    workers for the cores (a test of thousands of small ops ran a
+    hundred times slower there than alone).  A test module that imports
+    this fixture runs torch on one thread."""
+    import torch
+
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
 
 
 def port_index(idx) -> QuasiIndex:
@@ -80,6 +96,55 @@ def risk_reads(seqs, k, L, seed):
 
 def port_batch(b) -> FastqBatch:
     return FastqBatch(codes=np.asarray(b.codes), lens=np.asarray(b.lens))
+
+
+def port_slots(slots) -> dict:
+    """The joint-hit slots of sailfish_tpu's merge_and_collapse
+    (return_slots=True) as torch tensors."""
+    import torch
+
+    return {k: torch.from_numpy(np.array(v)) for k, v in slots.items()}
+
+
+def jax_eq(eq):
+    """A sailfish_tpu EqClasses over the arrays of the port's."""
+    from sailfish_tpu.eqclass.classes import EqClasses
+
+    return EqClasses(members=np.array(eq.members), offsets=np.array(eq.offsets),
+                     counts=np.array(eq.counts))
+
+
+BIAS_VECTORS = ("read_bias_counts", "observed_gc", "expected_seq_bias",
+                "expected_gc")
+
+
+def copy_bias(src, dst):
+    """The observed and expected vectors of one package's BiasState into
+    the other's; returns dst."""
+    for f in BIAS_VECTORS:
+        setattr(dst, f, np.copy(getattr(src, f)))
+    return dst
+
+
+def hit_blocks(pidx, batches, cand_cap):
+    """The port's oriented hit blocks (fw, rc) of each batch in
+    `batches` on the CPU."""
+    import torch
+
+    from sailfish_tpu_torch.index.device import TorchIndex
+    from sailfish_tpu_torch.map.lanes import map_oriented_lanes
+
+    tidx = TorchIndex.from_quasi_index(pidx, "cpu")
+    out = []
+    for b in batches:
+        h = map_oriented_lanes(tidx, torch.from_numpy(b.codes),
+                               torch.from_numpy(b.lens), cand_cap=cand_cap,
+                               max_mmps=4, max_steps=b.codes.shape[1])
+        n = b.codes.shape[0]
+        out.append(tuple({k: v[s] for k, v in h.items()
+                          if k != "num_mapped_loci"}
+                         for s in (slice(0, n), slice(n, 2 * n))))
+    return out
 
 
 def write_fasta(path, names, seqs):
