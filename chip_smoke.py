@@ -32,7 +32,9 @@ result line):
      kernel, whole and unchanged, at C = 64: a batch of 65,536 paired
      100 bp fragments (both mates, fwd + rc: 262,144 lanes, L = 104),
      its first mates as a single-end batch (131,072 lanes) and a batch
-     of paired 152 bp fragments (262,144 lanes, L = 152).  Then a
+     of paired 152 bp fragments (262,144 lanes, L = 152); the paired
+     batch also under the jump rule, the launch of phase 15's world 1.
+     Then a
      sample of 8,192 fragments with an N in every 7th read: C = 64,
      C = 64 under the jump rule, C = 1024 (the escalation pass) and
      C = 2, where lanes must overflow, at L = 104, and C = 64 at L = 152
@@ -115,7 +117,23 @@ result line):
      paired 100 bp library of phase 7: eq_classes.txt identical to the
      monolithic run's, quant.sf at rtol 1e-9, the facts, replay and slot
      kernels launched and the monolithic scan not
- 15. the kernel table line, the nvidia-smi line, then the result line
+ 15. dist: the data-parallel step (sailfish_tpu_torch/parallel/dist.py)
+     on the world's k = 31 index and the first paired batch, its ranks
+     spawned by `dist.spawn` as `python -m
+     sailfish_tpu_torch.parallel.dist` spawns them, each loading the
+     index from .smoke_cache: world 1 on NCCL, whose merged eq table must
+     equal `expected_eq_table` of the device backend's exact classes of
+     the same batch slot for slot (and alpha sum to the mapped count);
+     world 2 on gloo, both ranks on the one card, equal to world 1
+     (alpha at rtol 1e-5, the rest exactly); the prefix route
+     (`use_hash=False` on the same arrays) on 2,048 fragments on the
+     card, equal to the same step on the CPU (plain versions, its own
+     process, started after the card's ranks have ended); the scan kernels' launches in each; the step's ms beside
+     `map_prefetched`'s on the same batch, one step under torch.profiler,
+     and the step's EM update alone on a label matrix of the batch's
+     shape, with its `index_add_` timed both ways (PAD zeros spread over
+     the bins, and all on bin 0)
+ 16. the kernel table line, the nvidia-smi line, then the result line
 
 `--kernel-only` runs phases 1, 3 and 4 (toolchain, world, kernel vs
 plain: both widths, the prefix route, the sharded modes) and prints no
@@ -1442,6 +1460,293 @@ def phase_sharded_cli(torch, cli, wdir, idx4_dir, batch, card):
     return n
 
 
+# ---------------------------------------------------------------- dist
+DIST_SAMPLE = 2048   # fragments of the prefix-route step, card against CPU
+DIST_REPS = 5        # steps a card rank runs; the first loads the kernels
+
+
+def _dist_inputs(index, n):
+    """The step's effective lengths (transcript length less the mean
+    fragment length of 250, at least 1) and the uniform alpha of the
+    JAX dryrun (n fragments over the transcripts), float32."""
+    T = index.num_transcripts
+    eff = np.maximum(index.txp_lens.astype(np.float64) - 250.0, 1.0)
+    return eff.astype(np.float32), np.full(T, float(n) / T, np.float32)
+
+
+def _dist_kw(index, use_hash, L):
+    """The step's keywords at the main path's options (C = 64, 4 MMPs,
+    the step budget of read width L), on the route `use_hash` names."""
+    from sailfish_tpu_torch.config import QuantOpts
+
+    ht = index.kmer_ht
+    return dict(k=index.k, prefix_bases=index.prefix_bases, cand_cap=64,
+                max_mmps=4, max_steps=QuantOpts().effective_scan_steps(L),
+                use_hash=use_hash,
+                ht_probes=int(ht["max_probes"]) if use_hash else 0,
+                ht_bits=int(ht["ht_bits"]) if use_hash else 0)
+
+
+def _map_prefetched_ms(index, tidx, batch, skip):
+    """ms of the device backend's `map_prefetched` on the batch, at the
+    main path's options under skip rule `skip` (host clock, the card
+    synchronized before and after), DIST_REPS times."""
+    from sailfish_tpu_torch.config import QuantOpts
+    from sailfish_tpu_torch.device import synchronize
+    from sailfish_tpu_torch.io.fastq import FastqBatch
+    from sailfish_tpu_torch.libformat import parse_library_format
+    from sailfish_tpu_torch.map.pipeline import DeviceMapperBackend
+
+    be = DeviceMapperBackend(index, QuantOpts(hit_capacity=64,
+                                              hit_capacity_max=1024,
+                                              mmp_skip=skip),
+                             tidx.device, tindex=tidx)
+    pf = be.prefetch_pe(FastqBatch(batch[0], batch[1]),
+                        FastqBatch(batch[2], batch[3]))
+    exp = parse_library_format("IU")
+    ms = []
+    for _ in range(DIST_REPS):
+        synchronize(tidx.device)
+        t0 = time.perf_counter()
+        be.map_prefetched(pf, exp)
+        synchronize(tidx.device)
+        ms.append(1e3 * (time.perf_counter() - t0))
+    return ms
+
+
+def _profile_step(torch, step, args, dev, top=6):
+    """One call of `step` under torch.profiler after a warm call: its
+    host-clock ms, the device's busy ms and the top device kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from sailfish_tpu_torch.device import synchronize
+
+    step(*args)
+    synchronize(dev)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(*args)
+        synchronize(dev)
+        wall = 1e3 * (time.perf_counter() - t0)
+    evts = sorted((e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and _device_us(e) > 0), key=_device_us, reverse=True)
+    return {"wall_ms": wall,
+            "busy_ms": sum(_device_us(e) for e in evts) / 1e3,
+            "top": [(e.key[:70], _device_us(e) / 1e3, e.count)
+                    for e in evts[:top]]}
+
+
+def dist_card_rank(mesh, idx_dir, batch, sample):
+    """A rank of phase 15 on the card (dist.spawn runs it): loads the
+    world's index from .smoke_cache and runs the k-mer route's step on
+    the whole batch DIST_REPS times.  At world 1 also: the exact eq
+    classes of the same batch from the device backend's
+    `finish_batch_fast` (no escalation, the jump rule that the step
+    scans under), `map_prefetched`'s ms on the batch, and the prefix
+    route's step on the sample."""
+    import torch
+
+    from sailfish_tpu_torch.config import QuantOpts
+    from sailfish_tpu_torch.index.builder import load_index
+    from sailfish_tpu_torch.index.device import TorchIndex
+    from sailfish_tpu_torch.parallel.dist import host_classes, run_step
+
+    t0 = time.time()
+    index = load_index(idx_dir)
+    tidx = TorchIndex.from_quasi_index(index, mesh.device)
+    L = batch[0].shape[1]
+    eff, alpha = _dist_inputs(index, len(batch[0]))
+    out = {"ready_s": time.time() - t0,
+           "hash": run_step(mesh, tidx, eff, batch, alpha,
+                            _dist_kw(index, True, L), DIST_REPS)}
+    if mesh.size > 1:
+        return out
+    from sailfish_tpu_torch.parallel.dist import distributed_quant_step
+
+    step = distributed_quant_step(mesh, tidx, eff,
+                                  **_dist_kw(index, True, L))
+    dev_batch = tuple(torch.as_tensor(x).to(mesh.device) for x in batch)
+    out["profile"] = _profile_step(torch, step, (*dev_batch, alpha),
+                                   mesh.device)
+    del step, dev_batch
+    out["classes"] = host_classes(
+        index, QuantOpts(hit_capacity=64, hit_capacity_max=0, max_mmps=4,
+                         mmp_skip="jump"), mesh.device, batch, tindex=tidx)
+    out["map_prefetched_ms"] = {
+        skip: _map_prefetched_ms(index, tidx, batch, skip)
+        for skip in ("nip", "jump")}
+    del tidx
+    torch.cuda.empty_cache()
+    eff, alpha = _dist_inputs(index, len(sample[0]))
+    out["prefix"] = run_step(mesh, index, eff, sample, alpha,
+                             _dist_kw(index, False, L))
+    return out
+
+
+def dist_cpu_rank(mesh, idx_dir, sample):
+    """The prefix route's step on the sample on the CPU: the plain
+    versions of the kernels, one gloo rank."""
+    from sailfish_tpu_torch.index.builder import load_index
+    from sailfish_tpu_torch.parallel.dist import run_step
+
+    index = load_index(idx_dir)
+    eff, alpha = _dist_inputs(index, len(sample[0]))
+    return run_step(mesh, index, eff, sample, alpha,
+                    _dist_kw(index, False, sample[0].shape[1]))
+
+
+def phase_em_update(torch, dev, card):
+    """The step's EM update (dist.py `_fragment_em_update`) on a label
+    matrix of the paired batch's shape (65,536 fragments x 4 C = 256
+    slots, 1-7 members each, seed 19), timed with CUDA events; beside it
+    its closing `index_add_` alone, with the PAD slots' zeros spread over
+    the bins as the update adds them, and sent to bin 0 as a literal
+    port of the JAX `segment_sum` over `where(valid, label, 0)` would."""
+    from sailfish_tpu_torch.parallel.dist import _fragment_em_update
+
+    rng = np.random.default_rng(19)
+    B, W, T = 65536, 256, 186173
+    n = rng.integers(1, 8, B)
+    label = np.full((B, W), -1, np.int32)
+    for i in range(B):
+        label[i, :n[i]] = np.sort(rng.choice(T, n[i], replace=False))
+    label = torch.from_numpy(label).to(dev)
+    label_len = torch.from_numpy(n.astype(np.int32)).to(dev)
+    alpha = torch.from_numpy(rng.random(T).astype(np.float32)).to(dev)
+    eff = torch.from_numpy(rng.uniform(0, 3000, T).astype(np.float32)
+                           ).to(dev)
+    got = _fragment_em_update(label, label_len, alpha, eff, T)
+    require(bool(torch.isfinite(got).all())
+            and abs(float(got.sum()) - B) < 1e-3 * B,
+            "EM update: alpha does not sum to the fragments")
+    valid = label >= 0
+    index = {"spread": torch.where(
+                 valid, label.long(),
+                 torch.arange(B * W, device=dev).view(B, W) % T).reshape(-1),
+             "bin0": torch.where(valid, label, 0).long().reshape(-1)}
+    zeros = torch.zeros(B * W, device=dev)
+    ms = {"update": _time_ms(torch, lambda: _fragment_em_update(
+        label, label_len, alpha, eff, T), 10)}
+    for key, idx in index.items():
+        ms[key] = _time_ms(torch, lambda idx=idx: torch.zeros(
+            T, device=dev).index_add_(0, idx, zeros), 10)
+    say(f"dist EM update on {B} x {W} label slots ({int(n.sum())} members): "
+        f"{ms['update']:.3f} ms; its index_add_ alone {ms['spread']:.3f} ms "
+        f"with the PAD slots' zeros spread over the bins, "
+        f"{ms['bin0']:.3f} ms with them all on bin 0 [{card}]")
+    return ms
+
+
+def _dist_same(got, want, what):
+    """Alpha at rtol 1e-5, everything else exactly; returns alpha's
+    largest relative difference."""
+    require(got["alpha"].dtype == np.float32, f"{what}: alpha not float32")
+    for key in ("fld", "eq_counts", "eq_checksum"):
+        require(np.array_equal(got[key], want[key]),
+                f"{what}: {key} differs")
+    require(got["num_mapped"] == want["num_mapped"],
+            f"{what}: {got['num_mapped']} mapped against "
+            f"{want['num_mapped']}")
+    require(np.allclose(got["alpha"], want["alpha"], rtol=1e-5, atol=0),
+            f"{what}: alpha differs beyond rtol 1e-5")
+    a, b = got["alpha"].astype(np.float64), want["alpha"].astype(np.float64)
+    return float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-30)))
+
+
+def _steady(ms):
+    return float(np.median(ms[1:]))
+
+
+def phase_dist(torch, idx_dir, mates, card):
+    """The data-parallel step (parallel/dist.py) on the world's k = 31
+    index and the paired batch `mates`, its ranks spawned as the entry
+    point spawns them: world 1 on NCCL against the exact eq classes of
+    the device backend; world 2 on gloo, both ranks on the one card,
+    against world 1; the prefix route on the card against the plain
+    versions on the CPU.  The CPU rank starts after the card's ranks have
+    ended, so that no step is timed while it takes the host's cores.
+    Returns the scan kernels' launches by run."""
+    from sailfish_tpu_torch.parallel.dist import (
+        check_step, same_on_every_rank, spawn)
+
+    t_start = time.time()
+    lens = np.full(len(mates[0]), mates[0].shape[1], np.int32)
+    batch = (_padded(mates[0]), lens, _padded(mates[1]), lens)
+    sample = tuple(x[:DIST_SAMPLE] for x in batch)
+    try:
+        w1 = spawn(dist_card_rank, 1, idx_dir, batch, sample,
+                   device="cuda", timeout=600)[0]
+        w2 = spawn(dist_card_rank, 2, idx_dir, batch, sample,
+                   device="cuda", backend="gloo", timeout=600)
+        one = w1["hash"]
+        slots = check_step(one, *w1["classes"])
+        two = same_on_every_rank([r["hash"] for r in w2])
+        t_cpu = time.time()
+        plain = spawn(dist_cpu_rank, 1, idx_dir, sample, device="cpu",
+                      threads=4, timeout=600)[0]
+        t_cpu = time.time() - t_cpu
+    except (RuntimeError, ValueError) as e:
+        raise SmokeFailure(f"dist: {e}") from None
+    B = len(batch[0])
+    require(one["launches"] == {"mmp_scan": DIST_REPS, "mmp_scan_prefix": 0},
+            f"dist world 1: scan launches {one['launches']}")
+    say(f"dist world 1 (NCCL): {B} fragments, {one['num_mapped']} mapped, "
+        f"{len(w1['classes'][2])} classes in {slots} slots: the merged eq "
+        f"table equals expected_eq_table of finish_batch_fast's classes "
+        f"slot for slot (counts and checksums), alpha sums to "
+        f"{one['alpha'].sum(dtype=np.float64):.3f}; collision detector "
+        f"silent on single-label slots, firing on a corrupted one; "
+        f"sf_mmp_scan launches {one['launches']['mmp_scan']} in "
+        f"{DIST_REPS} steps; step ms {[round(x, 3) for x in one['ms']]}, "
+        f"steady {_steady(one['ms']):.3f} (index load + upload "
+        f"{w1['ready_s']:.1f}s) [{card}]")
+    mp = w1["map_prefetched_ms"]
+    say(f"dist: map_prefetched on the same batch (one process, C = 64): "
+        f"nip rule (the main path) {[round(x, 3) for x in mp['nip']]} ms, "
+        f"steady {_steady(mp['nip']):.3f}; jump rule (the step's) "
+        f"{[round(x, 3) for x in mp['jump']]} ms, steady "
+        f"{_steady(mp['jump']):.3f} [{card}]")
+    err2 = _dist_same(two, one, "dist world 2 (gloo) against world 1")
+    for r, res in enumerate(w2):
+        require(res["hash"]["launches"]["mmp_scan"] == DIST_REPS,
+                f"dist world 2 rank {r}: launches {res['hash']['launches']}")
+    say(f"dist world 2 (gloo, both ranks on the one card, {B // 2} "
+        f"fragments each): outputs equal world 1's (alpha largest relative "
+        f"difference {err2:.3e}, the rest exact); step ms rank 0 "
+        f"{[round(x, 3) for x in w2[0]['hash']['ms']]}, rank 1 "
+        f"{[round(x, 3) for x in w2[1]['hash']['ms']]}, steady "
+        f"{max(_steady(r['hash']['ms']) for r in w2):.3f} [{card}]")
+    pre = w1["prefix"]
+    require(pre["launches"] == {"mmp_scan": 0, "mmp_scan_prefix": 1},
+            f"dist prefix route: scan launches {pre['launches']}")
+    require(pre["num_mapped"] > 0 and abs(
+        pre["alpha"].sum(dtype=np.float64) - pre["num_mapped"])
+        < 1e-2 * pre["num_mapped"], "dist prefix route: alpha sum")
+    err3 = _dist_same(pre, plain, "dist prefix route, card against CPU")
+    say(f"dist prefix route (use_hash=False on the k = 31 arrays), world 1, "
+        f"{DIST_SAMPLE} fragments: the card's outputs equal the CPU's plain "
+        f"versions (alpha largest relative difference {err3:.3e}, the rest "
+        f"exact; {pre['num_mapped']} mapped); sf_mmp_scan_prefix launches "
+        f"{pre['launches']['mmp_scan_prefix']}; step ms card "
+        f"{pre['ms'][0]:.3f} (first call), CPU {plain['ms'][0]:.3f} (the "
+        f"CPU rank's process {t_cpu:.1f}s, after the card's) [{card}]")
+    prof = w1["profile"]
+    say(f"dist world 1 step under torch.profiler (after a warm step): wall "
+        f"{prof['wall_ms']:.3f} ms, device busy {prof['busy_ms']:.3f} ms "
+        f"({100 * prof['busy_ms'] / prof['wall_ms']:.1f}%); top kernels: "
+        + "; ".join(f"{name} {ms:.3f} ms x{cnt}"
+                    for name, ms, cnt in prof["top"]) + f" [{card}]")
+    phase_em_update(torch, torch.device("cuda"), card)
+    say(f"dist: phase took {time.time() - t_start:.1f}s")
+    return ({"dist_world1": one["launches"]["mmp_scan"],
+             "dist_world2": sum(r["hash"]["launches"]["mmp_scan"]
+                                for r in w2)},
+            {"dist_prefix_world1": pre["launches"]["mmp_scan_prefix"]})
+
+
 def phase_oracle(torch, index, tidx, mates, lib, caps):
     """Eq classes of a sample from the device backend against the
     refimpl backend.  `mates` is (m1, m2) for a paired library or (m,)
@@ -2306,11 +2611,15 @@ def main(argv=None) -> int:
         # the lane blocks of the three runs below, whole and unchanged
         kv = {}
         main_case = [{"cand_cap": 64}]
-        for tag, mates in (("paired_batch", batches[0]),
-                           ("single_end_batch", batches[0][:1]),
-                           ("long_batch", long_batch)):
+        # the paired batch also under the jump rule: the lane block and
+        # rule of the dist step's world 1 (phase 15)
+        for tag, mates, cases in (
+                ("paired_batch", batches[0],
+                 main_case + [{"cand_cap": 64, "skip_jump": True}]),
+                ("single_end_batch", batches[0][:1], main_case),
+                ("long_batch", long_batch, main_case)):
             kv.update(phase_kernel_vs_plain(
-                torch, tidx, tag, _mate_reads(mates, False), main_case, smi,
+                torch, tidx, tag, _mate_reads(mates, False), cases, smi,
                 copy_rate))
         # a sample with Ns.  64: the main pass, under both skip rules;
         # 1024: the escalation pass; 2: a capacity that the gene families
@@ -2478,6 +2787,10 @@ def main(argv=None) -> int:
         launches_sh = phase_sharded_cli(torch, cli, wdir, idx4_dir,
                                         args.batch, smi)
         note("sharded CLI done")
+        torch.cuda.empty_cache()
+        dist_launches, dist_prefix_launches = phase_dist(
+            torch, idx_dir, batches[0], smi)
+        note("dist done")
         require("jax" not in sys.modules
                 and "sailfish_tpu" not in sys.modules,
                 "jax or the JAX package was imported")
@@ -2504,7 +2817,7 @@ def main(argv=None) -> int:
         # two libraries, checkpoints), set to 0 before each
         "launches_by_run": {"pe100": launches, "se100": launches_se,
                             f"pe{LONG_READ_LEN}": launches_long,
-                            **more_launches},
+                            **more_launches, **dist_launches},
         "shapes": kv,
     })
     # the 64-bit instantiation: ms, plain_ms and bound_ms of the paired
@@ -2530,6 +2843,8 @@ def main(argv=None) -> int:
         "ms": main15["ms"], "plain_ms": main15["plain_ms"],
         "bound_ms": main15["bound_ms"], "bound_by": main15["bound_by"],
         "library_ms": None, "shapes": kv15,
+        "launches_by_run": {"pe_k15": launches15["mmp_scan_prefix"],
+                            **dist_prefix_launches},
     })
     # the sharded modes: ms, plain_ms and bound_ms per launch on the
     # paired batch's lanes on the 4-shard index (facts and slots: the mean
