@@ -27,7 +27,10 @@ result line):
      outputs equal bit for bit (every slot written), equal after the
      post-pass, both timed, with the least time the card could take for
      the same bytes and operations, and the table rows the kernel read
-     beside those the scan needs.
+     beside those the scan needs; on the prefix route and at every facts
+     launch also the 16-byte text chunks its compare read beside those
+     that a compare stopping at each candidate's first mismatching chunk
+     needs (the plain version's `work["chunks"]`), never fewer.
      First the three lane blocks that the runs of phase 7 give the
      kernel, whole and unchanged, at C = 64: a batch of 65,536 paired
      100 bp fragments (both mates, fwd + rc: 262,144 lanes, L = 104),
@@ -138,6 +141,11 @@ result line):
 `--kernel-only` runs phases 1, 3 and 4 (toolchain, world, kernel vs
 plain: both widths, the prefix route, the sharded modes) and prints no
 result line: the quick way to time a change to the scan kernel.
+`--against CHECKOUT [CHECKOUT ...]` runs phases 1 and 3, then times
+this tree's scan kernels in turns against those of each other checkout
+(for instance the parent commit, unpacked with `git archive` into
+`.proof/`) on the paired batch and the sample, and prints no result
+line.
 
 It imports only the port (sailfish_tpu_torch), no jax, and needs the
 repository beside it.
@@ -624,6 +632,22 @@ def seed_reads(work):
             + work.get("search_steps", 0))
 
 
+def chunk_count(torch, launch, work, name):
+    """One more launch with a chunk counter (`launch(counter)`): the
+    16-byte text chunks the kernel's compare read, which must be at least
+    the `work["chunks"]` the plain version counts as needed.  Returns
+    {"chunks_read", "chunks_needed"} and a phrase for the row's line."""
+    n = torch.zeros(1, dtype=torch.int64, device="cuda")
+    launch(n)
+    got, need = int(n.item()), work["chunks"]
+    require(got >= need, f"{name}: the kernel compared {got} chunks, fewer "
+            f"than the {need} a compare that stops at a candidate's first "
+            "mismatching chunk needs")
+    return ({"chunks_read": got, "chunks_needed": need},
+            f"text chunks needed {need}, read by the kernel {got} "
+            f"({got / max(need, 1):.4f}x)")
+
+
 def scan_bound(lanes, meta, work, C, M, pos_bytes=4):
     """Least time for one scan call on these inputs.  Bytes that must
     move: per lane L code bytes, 4 L packed-word bytes, its length and
@@ -702,6 +726,9 @@ def phase_kernel_vs_plain(torch, tidx, tag, reads, cases, card, copy_rate):
         need = seed_reads(work)
         require(rows >= need, f"{name}: the kernel read {rows} "
                 f"{reads_what}, fewer than the {need} the scan needs")
+        chunks, chunks_say = ({}, "") if not tidx.prefix_route else (
+            chunk_count(torch, lambda n: scan(lanes, tidx, chunks_read=n,
+                                              **kw), work, name))
         ms = _time_ms(torch, lambda: scan(lanes, tidx, **kw), 5)
         plain_ms = _time_ms(
             torch, lambda: mmp_scan_reference(lanes, tidx, **kw), 1)
@@ -718,7 +745,9 @@ def phase_kernel_vs_plain(torch, tidx, tag, reads, cases, card, copy_rate):
             f"needed {need}, read by the kernel {rows} "
             f"({rows / max(need, 1):.4f}x), candidates "
             f"{work['candidates']} ({work['stored']} stored), text "
-            f"bytes {work['text_bytes']}; kernel {ms:.3f} ms, plain "
+            f"bytes {work['text_bytes']}"
+            f"{', ' + chunks_say if chunks_say else ''}; kernel "
+            f"{ms:.3f} ms, plain "
             f"{plain_ms:.3f} ms, bound {bound['bound_ms']:.4f} ms by "
             f"{bound['bound_by']} at the published peak "
             f"({bound['bound_ms'] * PEAK_BYTES_S / copy_rate:.4f} ms at "
@@ -727,7 +756,7 @@ def phase_kernel_vs_plain(torch, tidx, tag, reads, cases, card, copy_rate):
         out[name] = {
             "lanes": n_lanes, "ms": ms, "plain_ms": plain_ms,
             "max_abs_err": err, "table_rows_needed": need,
-            "table_rows_read": rows, **bound}
+            "table_rows_read": rows, **chunks, **bound}
         del k
         torch.cuda.empty_cache()
     return out
@@ -814,6 +843,9 @@ def phase_kernel64(torch, tidx, tidx64, blocks, card, copy_rate):
             ms = {b: sum(v) / len(v) for b, v in t.items()}
             plain_ms = _time_ms(
                 torch, lambda: mmp_scan_reference(lanes, tidx64, **kw), 1)
+            chunks, chunks_say = ({}, "") if not tidx64.prefix_route else (
+                chunk_count(torch, lambda n: mmp_scan_cuda(
+                    lanes, tidx64, chunks_read=n, **kw), work, name))
             bound = scan_bound(lanes, k64[3], work, C, 4, pos_bytes=8)
             at_copy = bound["bound_ms"] * PEAK_BYTES_S / copy_rate
             say(f"kernel 64-bit vs plain {name}: {n_lanes} lanes ({what} x "
@@ -823,7 +855,8 @@ def phase_kernel64(torch, tidx, tidx64, blocks, card, copy_rate):
                 f"{'' if tidx64.prefix_route else ' (a side-array word each)'}"
                 f", "
                 f"candidates {work['candidates']} ({work['stored']} "
-                f"stored); 64-bit {ms[64]:.3f} ms ({t[64][0]:.3f}, "
+                f"stored){', ' + chunks_say if chunks_say else ''}; "
+                f"64-bit {ms[64]:.3f} ms ({t[64][0]:.3f}, "
                 f"{t[64][1]:.3f}), 32-bit {ms[32]:.3f} ms ({t[32][0]:.3f}, "
                 f"{t[32][1]:.3f}), 64 / 32 {ms[64] / ms[32]:.3f}; plain "
                 f"{plain_ms:.3f} ms; bound {bound['bound_ms']:.4f} ms by "
@@ -832,7 +865,7 @@ def phase_kernel64(torch, tidx, tidx64, blocks, card, copy_rate):
                 f"{ms[64] / bound['bound_ms']:.2f} [{card}]")
             out[name] = {"lanes": n_lanes, "ms": ms[64], "ms_int32": ms[32],
                          "plain_ms": plain_ms, "max_abs_err": err,
-                         "seeds": work["seeds"], **bound}
+                         "seeds": work["seeds"], **chunks, **bound}
             del k64, k32, p
         del lanes
         torch.cuda.empty_cache()
@@ -952,8 +985,10 @@ def run_modes(torch, shards, lanes, name, C=64, M=4, timed=False):
     hit_len, meta, level, [(txp, pos, valid) per shard], readings):
     readings[kernel] holds one dict a launch (facts: a shard and pass;
     slots: a shard) with its "max_abs_err" and the plain version's
-    `work`; with `timed`, also the kernel's "ms" (mean of 3) and the
-    plain version's "plain_ms" (1 call) on those inputs."""
+    `work`, a facts launch also its "chunks_read" and "chunks_needed"
+    (`chunk_count`) and "chunks_say" (its phrase); with `timed`, also the
+    kernel's "ms" (mean of 3) and the plain version's "plain_ms" (1 call)
+    on those inputs."""
     from sailfish_tpu_torch.map.facts import (
         FactsMerge,
         facts_cuda,
@@ -966,8 +1001,9 @@ def run_modes(torch, shards, lanes, name, C=64, M=4, timed=False):
 
     readings = {"facts": [], "replay": [], "slots": []}
 
-    def held(kernel, what, outs, kern, plain):
-        """kern() against plain(work); returns the kernel's outputs."""
+    def held(kernel, what, outs, kern, plain, counted=None):
+        """kern() against plain(work); `counted(n)`, when given, launches
+        the kernel with a chunk counter.  Returns the kernel's outputs."""
         def tup(x):
             return x if isinstance(x, tuple) else (x,)
 
@@ -976,6 +1012,10 @@ def run_modes(torch, shards, lanes, name, C=64, M=4, timed=False):
         r = {"max_abs_err": _same_raw(torch, f"{name} {what}", tup(got),
                                       tup(plain(work)), PLAIN, outs),
              "work": work}
+        if counted is not None:
+            c, r["chunks_say"] = chunk_count(torch, counted, work,
+                                             f"{name} {what}")
+            r.update(c)
         if timed:
             r["ms"] = _time_ms(torch, kern, 3)
             r["plain_ms"] = _time_ms(torch, lambda: plain(None), 1)
@@ -988,7 +1028,8 @@ def run_modes(torch, shards, lanes, name, C=64, M=4, timed=False):
         merge.add(held(
             "facts", f"facts, shard {d}", ("facts",),
             lambda: facts_cuda(lanes, ix, cand_cap=C),
-            lambda w: facts_reference(lanes, ix, cand_cap=C, work=w)))
+            lambda w: facts_reference(lanes, ix, cand_cap=C, work=w),
+            lambda n: facts_cuda(lanes, ix, cand_cap=C, chunks_read=n)))
     level = None
     if shards.prefix_route:
         level = merge.levels()
@@ -997,7 +1038,9 @@ def run_modes(torch, shards, lanes, name, C=64, M=4, timed=False):
                 "facts", f"facts at the levels, shard {d}", ("facts",),
                 lambda: facts_cuda(lanes, ix, cand_cap=C, level=level),
                 lambda w: facts_reference(lanes, ix, cand_cap=C,
-                                          level=level, work=w)))
+                                          level=level, work=w),
+                lambda n: facts_cuda(lanes, ix, cand_cap=C, level=level,
+                                     chunks_read=n)))
     gfact = merge.gfact()
     del merge
     kw = dict(k=shards.k, max_mmps=M, max_steps=L, skip_jump=False)
@@ -1297,7 +1340,8 @@ def phase_sharded_kernels(torch, index, tidx, shards, batch, sample_reads,
         say(f"facts kernel, shard {d} of {D}, paired batch: {n_lanes} "
             f"lanes, {positions} probed positions, {w['buckets']} table "
             f"rows, {w['candidates']} candidates, {w['text_bytes']} text "
-            f"bytes, {8 * n_lanes * L} bytes of facts written; kernel "
+            f"bytes, {8 * n_lanes * L} bytes of facts written, "
+            f"{r['chunks_say']}; kernel "
             f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, bound "
             f"{r['bound']['bound_ms']:.4f} ms by {r['bound']['bound_by']} "
             f"({r['bound']['bound_ms'] * PEAK_BYTES_S / copy_rate:.4f} ms "
@@ -1331,8 +1375,9 @@ def phase_sharded_kernels(torch, index, tidx, shards, batch, sample_reads,
         # per launch: the mean over this batch's launches (one a shard
         # for facts and slots), each launch beside it
         n = len(launches)
-        each = [{"ms": x["ms"], "plain_ms": x["plain_ms"],
-                 **x["bound"]} for x in launches]
+        each = [{"ms": x["ms"], "plain_ms": x["plain_ms"], **x["bound"],
+                 **{c: x[c] for c in ("chunks_read", "chunks_needed")
+                    if c in x}} for x in launches]
         out[key] = {
             "lanes": n_lanes,
             "ms": sum(x["ms"] for x in each) / n,
@@ -1346,6 +1391,118 @@ def phase_sharded_kernels(torch, index, tidx, shards, batch, sample_reads,
     del lanes, hits, meta
     torch.cuda.empty_cache()
     return out, [rd_sample, rd_esc, rd]
+
+
+def load_other(path, name):
+    """The `sailfish_tpu_torch` package of another checkout at `path`
+    (its kernels built from its own sources into its own `_build/`),
+    imported as `name` beside this one: (_ext, map.scan, map.facts)."""
+    import importlib
+    import importlib.util
+
+    pkg = os.path.join(os.path.abspath(path), "sailfish_tpu_torch")
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(pkg, "__init__.py"),
+        submodule_search_locations=[pkg])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod
+    spec.loader.exec_module(mod)
+    return tuple(importlib.import_module(f"{name}.{m}")
+                 for m in ("_ext", "map.scan", "map.facts"))
+
+
+def phase_in_turns(torch, other, index, tidx, idx4_dir, batch, kf, card):
+    """This tree's scan kernels against another checkout's (`--against`),
+    each row timed in turns (other, this, this, other) on the same card
+    tensors, with whether the two gave the same outputs: the k-mer scan
+    on the paired batch under both skip rules, in 32 and 64 bits; the
+    prefix route on the paired batch and on the sample at C = 64, 1024
+    and 2, in 32 bits, and at C = 64 in 64 bits; the facts and slot
+    kernels of each of the 4 shards on the paired batch's lanes."""
+    from sailfish_tpu_torch import _ext
+    from sailfish_tpu_torch.index.builder import load_index
+    from sailfish_tpu_torch.index.device import TorchIndex
+    from sailfish_tpu_torch.map import facts, scan
+    from sailfish_tpu_torch.map.encode import make_oriented_lanes
+    from sailfish_tpu_torch.parallel.shardidx import TorchShards
+
+    o_ext, o_scan, o_facts = other
+    dev = tidx.device
+    t0 = time.time()
+    kl, ko = _ext.load(), o_ext.load()
+    say(f"in turns: this tree's kernels ({kl.path}) against "
+        f"{ko.path} ({time.time() - t0:.1f}s to build) [{card}]")
+
+    def lanes_of(reads):
+        codes, lens, _ = reads
+        return make_oriented_lanes(torch.from_numpy(codes).to(dev),
+                                   torch.from_numpy(lens).to(dev))
+
+    def row(name, mine, theirs, reps=5):
+        a, b = mine(), theirs()
+        torch.cuda.synchronize()
+        a = a if isinstance(a, tuple) else (a,)
+        b = b if isinstance(b, tuple) else (b,)
+        same = all(torch.equal(x, y) for x, y in zip(a, b))
+        del a, b
+        t = {"this": [], "other": []}
+        for who in ("other", "this", "this", "other"):
+            t[who].append(_time_ms(torch, mine if who == "this" else theirs,
+                                   reps))
+        ms = {w: sum(v) / len(v) for w, v in t.items()}
+        say(f"in turns {name}: this {ms['this']:.4f} ms ({t['this'][0]:.4f}"
+            f", {t['this'][1]:.4f}), other {ms['other']:.4f} ms "
+            f"({t['other'][0]:.4f}, {t['other'][1]:.4f}), this / other "
+            f"{ms['this'] / ms['other']:.3f}; outputs "
+            f"{'equal' if same else 'DIFFER'} [{card}]")
+
+    paired = lanes_of(_mate_reads(batch, False))
+    sample = lanes_of(_mate_reads(tuple(m[:kf] for m in batch), True))
+    L = paired["codes"].shape[1]
+    kw = dict(max_mmps=4, max_steps=L)
+    tidx64 = TorchIndex.from_quasi_index(big_index(index), "cuda")
+    for name, ix, extra in (("scan paired_batch C64", tidx, {}),
+                            ("scan paired_batch C64 jump", tidx,
+                             {"skip_jump": True}),
+                            ("scan64 paired_batch C64", tidx64, {})):
+        row(name,
+            lambda: scan.mmp_scan_cuda(paired, ix, cand_cap=64, **kw,
+                                       **extra),
+            lambda: o_scan.mmp_scan_cuda(paired, ix, cand_cap=64, **kw,
+                                         **extra))
+    del tidx64
+    idx15 = prefix_index(index)
+    for bits in (32, 64):
+        ix = TorchIndex.from_quasi_index(
+            idx15 if bits == 32 else big_index(idx15), "cuda")
+        cases = ((("prefix paired_batch", paired, 64),) if bits == 32
+                 else ()) + tuple(
+            (f"prefix{'' if bits == 32 else '64'} sample", sample, C)
+            for C in ((64, 1024, 2) if bits == 32 else (64,)))
+        for name, lanes, C in cases:
+            row(f"{name} C{C}",
+                lambda: scan.mmp_scan_cuda(lanes, ix, cand_cap=C, **kw),
+                lambda: o_scan.mmp_scan_cuda(lanes, ix, cand_cap=C, **kw),
+                reps=3)
+        del ix
+        torch.cuda.empty_cache()
+    shards = TorchShards.from_sharded(load_index(idx4_dir), ["cuda"])
+    merge = facts.FactsMerge(k=shards.k, cand_cap=64, prefix=False)
+    for d, ix in enumerate(shards.indexes):
+        merge.add(facts.facts_cuda(paired, ix, cand_cap=64))
+        row(f"facts shard {d} paired_batch C64",
+            lambda: facts.facts_cuda(paired, ix, cand_cap=64),
+            lambda: o_facts.facts_cuda(paired, ix, cand_cap=64), reps=3)
+    r = facts.replay_cuda(merge.gfact(), paired["lens"], k=shards.k, **kw)
+    del merge
+    for d, (ix, base) in enumerate(zip(shards.indexes, shards.bases)):
+        skw = dict(txp_base=base, cand_cap=64, max_mmps=4)
+        row(f"slots shard {d} paired_batch C64",
+            lambda: facts.slots_cuda(paired, ix, *r, None, **skw),
+            lambda: o_facts.slots_cuda(paired, ix, *r, None, **skw),
+            reps=3)
+    del shards, r, paired, sample
+    torch.cuda.empty_cache()
 
 
 def _launch_counts(reset=False):
@@ -2565,6 +2722,11 @@ def main(argv=None) -> int:
                     "update_effective_lengths")
     ap.add_argument("--kernel-only", action="store_true",
                     help="stop after the kernel comparison; no result line")
+    ap.add_argument("--against", metavar="CHECKOUT", nargs="+",
+                    help="time this tree's scan kernels in turns against "
+                    "those of other checkouts of the repository (built "
+                    "from their sources), one after the other, after the "
+                    "toolchain and world phases; no result line")
     args = ap.parse_args(argv)
 
     import torch
@@ -2587,7 +2749,8 @@ def main(argv=None) -> int:
         phase_toolchain(torch)
         smi = nvidia_smi_line()
         copy_rate = phase_copy_bandwidth(torch, smi)
-        kernels = [] if args.kernel_only else [phase_ubench(torch, smi)]
+        kernels = ([] if args.kernel_only or args.against
+                   else [phase_ubench(torch, smi)])
         note("ubench done")
         idx_dir, wdir, batches, long_batch, xl, seqs = phase_world(args,
                                                                     cli)
@@ -2608,6 +2771,12 @@ def main(argv=None) -> int:
             f"{tidx.ht_bits} k-mer buckets, probe chain <= "
             f"{tidx.ht_probes} (load + upload {time.time() - t0:.1f}s)")
         kf, of = args.kernel_frags, args.oracle_frags
+        if args.against:
+            for n, path in enumerate(args.against):
+                phase_in_turns(torch, load_other(path, f"other_sf{n}"),
+                               index, tidx, idx4_dir, batches[0], kf, smi)
+            say(smi)
+            return 0
         # the lane blocks of the three runs below, whole and unchanged
         kv = {}
         main_case = [{"cand_cap": 64}]
@@ -2842,7 +3011,8 @@ def main(argv=None) -> int:
         "max_abs_err": max(v["max_abs_err"] for v in kv15.values()),
         "ms": main15["ms"], "plain_ms": main15["plain_ms"],
         "bound_ms": main15["bound_ms"], "bound_by": main15["bound_by"],
-        "library_ms": None, "shapes": kv15,
+        "library_ms": None, "chunks_read": main15["chunks_read"],
+        "chunks_needed": main15["chunks_needed"], "shapes": kv15,
         "launches_by_run": {"pe_k15": launches15["mmp_scan_prefix"],
                             **dist_prefix_launches},
     })
@@ -2863,6 +3033,11 @@ def main(argv=None) -> int:
             "ms": kvs[key]["ms"], "plain_ms": kvs[key]["plain_ms"],
             "bound_ms": kvs[key]["bound_ms"],
             "bound_by": kvs[key]["bound_by"], "library_ms": None,
+            # facts: chunks read and needed over the paired batch's
+            # launches, each launch's in per_launch
+            **({c: sum(x[c] for x in kvs[key]["per_launch"])
+                for c in ("chunks_read", "chunks_needed")}
+               if key == "facts" else {}),
             "per_launch": kvs[key]["per_launch"],
         })
     say(json.dumps({"kernels": kernels}))

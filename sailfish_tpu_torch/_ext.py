@@ -132,17 +132,18 @@ def _bind(lib: ctypes.CDLL) -> None:
             _P, _P, _P, _P, _P, _I, _P,
         ]
         scan.restype = _I
-    # the prefix route: table_lo, packed and P in place of the table
+    # the prefix route: table_lo, packed and P in place of the table, and
+    # a counter of compared chunks after rows_read
     for scan in (lib.sf_mmp_scan_prefix, lib.sf_mmp_scan_prefix64):
         scan.argtypes = [
             _P, _P, _P, _I, _I, _P, _LL, _P, _P, _P, _I, _P, _P,
             _I, _I, _I, _I, _I,
-            _P, _P, _P, _P, _P, _I, _P,
+            _P, _P, _P, _P, _P, _P, _I, _P,
         ]
         scan.restype = _I
     lib.sf_mmp_facts.argtypes = [
         _I, _I, _P, _P, _P, _I, _I, _P, _LL, _P, _P, _P, _P, _P, _I,
-        _I, _I, _I, _I, _P, _P, _I, _P,
+        _I, _I, _I, _I, _P, _P, _P, _I, _P,
     ]
     lib.sf_mmp_facts.restype = _I
     lib.sf_mmp_replay.argtypes = [

@@ -76,10 +76,37 @@
 // the interval holds more than C suffixes, narrows it by binary searches
 // over the A-substituted 16-base words `packed[sa[m] + depth]` at depths 0
 // and 16 (26 iterations at most, a suffix-array entry and a word each, at
-// random addresses).  Everything after the seed is the k-mer route's.
-// The route is a template parameter (`kPrefix`), so the k-mer route's
-// instantiations compile as before; `sf_mmp_scan_prefix` and
-// `sf_mmp_scan_prefix64` launch the prefix route.
+// random addresses).  The advance rule and the slots are the k-mer
+// route's; the compare is not.  The route is a template parameter
+// (`kPrefix`), so the k-mer route's instantiations compile as before;
+// `sf_mmp_scan_prefix` and `sf_mmp_scan_prefix64` launch the prefix route.
+//
+// What bounds the prefix route: bytes, as the k-mer route, but its
+// candidates share only the P-base (or 16-base) seed with the read, so
+// nearly every one mismatches inside its first 16 bytes, and a lane whose
+// read maps nowhere compares at nearly every position.  Comparing every
+// chunk of every candidate, one position after the other, read about 8
+// times the text bytes needed through the caches and left most of the
+// warp idle on a chain of dependent loads.  So the compare is a window-wide
+// pass: when the scan reaches a part of kPart positions of a window, the
+// (position, candidate) pairs of all its positions with 0 < cnt <= C are
+// flattened over the warp (a prefix sum of the counts) and each thread
+// compares its pairs' first 16-byte chunk, raising its position's largest
+// LCP in shared memory (`window_compare`).  That settles a position when
+// no candidate matched its first chunk whole (or the read ends inside it)
+// and the largest LCP is below k: no hit, which the consume loop passes
+// over as it passes a miss (one step, advance 1), so a lane whose read
+// maps nowhere crosses a part in one ballot.  Any other position is a hit
+// (k <= 16) or may be one, and is finished when the consume loop reaches
+// it: each candidate walked chunk by chunk to its first mismatching chunk
+// (`warp_walk_lstar`), its LCP kept for the slots.  A position's largest
+// LCP does not depend on the scan's state, so comparing chunk 0 of
+// positions that an advance then skips changes nothing but the chunks
+// read; a part of 16 positions skips most of them (on an H100, 8 and 16
+// time the same and 32 is 5 % slower on a batch of 65,536 paired 100 bp
+// fragments at k = 15).  The text bytes a random 16-byte read moves (a
+// 32-byte sector or two) rather than those compared then hold the route
+// back, beside the seed's own latency (PERF.md).
 //
 // A sharded index (a sub-index per contiguous transcript range, map/
 // facts.py) needs the scan of the whole text, which no shard holds.  The
@@ -102,6 +129,17 @@
 //     and a candidate valid when its LCP is the merged length.
 // They give the scan's hits on the whole text: a facts pass probes every
 // position, where the scan skips those behind a hit.
+//
+// What bounds the facts kernel: bytes (the table rows of every position
+// and the facts written).  Every found position's largest LCP is wanted,
+// and on the shard that holds a read's transcripts nearly every position
+// finds a k-mer with a few candidates that match to the read's end.
+// Comparing those one position at a time, a whole-warp compare each with
+// a handful of threads busy, made a chain of some 70 dependent compares a
+// lane.  So the facts kernel runs the window-wide pass of the prefix scan
+// over each window of 32 positions, walking every pair to its first
+// mismatching chunk: the chain becomes a few passes a lane, and no chunk
+// is read that the LCPs do not need.
 
 #include <climits>
 #include <cstdint>
@@ -126,6 +164,9 @@ constexpr int kReadPad = 32;
 
 __host__ __device__ constexpr int round16(int n) { return (n + 15) & ~15; }
 
+// window positions a window pass of the prefix scan compares at once
+constexpr int kPart = 16;
+
 // the XLA kernel's binary-search iterations (map/kernels.py `bs_iters`)
 constexpr int kSearchIters = 26;
 // a facts entry for a refinement the lane cannot make at that position
@@ -136,6 +177,21 @@ constexpr int kOverflow = -2;
 // Shared memory of one lane: packed words, codes (padded), candidate LCPs.
 __host__ __device__ constexpr int lane_smem_bytes(int L, int C) {
   return 4 * L + round16(L + kReadPad) + round16(4 * C);
+}
+
+// Per lane, the window-wide compare's: per window position its interval
+// start, the start of its pairs and its largest LCP (struct Window).
+constexpr int kWinBytes = kGroup * (8 + 4 + 4);
+
+// The prefix scan's: the k-mer scan's, then the window-wide compare's.
+__host__ __device__ constexpr int prefix_smem_bytes(int L, int C) {
+  return lane_smem_bytes(L, C) + kWinBytes;
+}
+
+// The facts kernel's: rows and the window-wide compare's, no candidate
+// LCPs.
+__host__ __device__ constexpr int facts_smem_bytes(int L) {
+  return 4 * L + round16(L + kReadPad) + kWinBytes;
 }
 
 __device__ __forceinline__ uint32_t mix_kmer(uint32_t k0, uint32_t k1) {
@@ -243,11 +299,22 @@ __device__ __forceinline__ int first_mismatch16(
   return n;
 }
 
-// No code above 3 in bytes [off, off + n) of the lane's shared-memory row.
+// No code above 3 in bytes [off, off + n), n <= 16, of the lane's
+// shared-memory row (word-aligned, padded behind the read): four words
+// funnel-shifted to the offset, a byte with a bit above the lowest two
+// being bad.
 __device__ __forceinline__ bool acgt(const uint8_t* q8, int off, int n) {
-  for (int j = 0; j < n; ++j)
-    if (q8[off + j] > 3) return false;
-  return true;
+  const uint32_t* q_s = reinterpret_cast<const uint32_t*>(q8);
+  const int qa = off >> 2;
+  const unsigned qsh = (unsigned)(off & 3) * 8u;
+  uint32_t bad = 0;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int keep = min(max(n - 4 * j, 0), 4);  // bytes of word j in range
+    const uint32_t a = __funnelshift_r(q_s[qa + j], q_s[qa + j + 1], qsh);
+    bad |= a & 0xFCFCFCFCu & low_bits(8 * keep);
+  }
+  return bad == 0;
 }
 
 __device__ __forceinline__ int clamp_int(long long n) {
@@ -394,6 +461,220 @@ __device__ __forceinline__ int warp_lstar(const uint32_t* q_s, int* lcp_s,
   return __reduce_max_sync(gmask, best);
 }
 
+// The walking compare of the prefix scan and the facts kernel.  The text
+// is read as aligned 16-byte vectors (the allocation is 16-byte aligned);
+// a vector index past `last_vec`, the last whole vector, is replaced by
+// it.  That vector holds the first padding byte (code 4), which no read
+// byte matches, and a walk goes on past a chunk only when the chunk
+// matched whole, so a replaced vector never decides a match.
+
+// The 16 text bytes from byte `sh` (0..15) of the vector pair (v0, v1)
+// as four words.
+__device__ __forceinline__ void text_words(const uint4& v0, const uint4& v1,
+                                           unsigned sh, uint32_t (&tw)[4]) {
+  const uint32_t w[8] = {v0.x, v0.y, v0.z, v0.w, v1.x, v1.y, v1.z, v1.w};
+  const unsigned sw = sh >> 2, bs = (sh & 3u) * 8u;
+  uint32_t u[5];
+#pragma unroll
+  for (int j = 0; j < 5; ++j)
+    u[j] = sw == 0 ? w[j] : sw == 1 ? w[j + 1] : sw == 2 ? w[j + 2]
+                                                          : w[j + 3];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) tw[j] = __funnelshift_r(u[j], u[j + 1], bs);
+}
+
+// First mismatching byte (0..16; 16 = none) of read bytes [qoff, qoff+16)
+// of the lane's shared-memory row against the text words `tw`; a read
+// code above 3 mismatches whatever the text holds.  A byte is bad when it
+// differs from the text's or has a bit above the lowest two: two logic
+// operations a word, where the SIMD byte compares take several each.
+__device__ __forceinline__ int mismatch16(const uint32_t* q_s, int qoff,
+                                          const uint32_t (&tw)[4]) {
+  const int qa = qoff >> 2;
+  const unsigned qsh = (unsigned)(qoff & 3) * 8u;
+  uint32_t qw[5];
+#pragma unroll
+  for (int j = 0; j < 5; ++j) qw[j] = q_s[qa + j];
+  int n = 16;
+#pragma unroll
+  for (int j = 3; j >= 0; --j) {
+    const uint32_t a = __funnelshift_r(qw[j], qw[j + 1], qsh);
+    const uint32_t bad = (a ^ tw[j]) | (a & 0xFCFCFCFCu);
+    if (bad) n = 4 * j + ((__ffs((int)bad) - 1) >> 3);
+  }
+  return n;
+}
+
+// The LCP of read bytes [i, i + rem) against the text from g, walking
+// 16-byte chunks in order and stopping at the first chunk that mismatches,
+// at most `max_chunks` of them; the next chunk's vector is in flight while
+// one is compared.  After a walk cut short by `max_chunks` with no
+// mismatch the result is 16 * max_chunks, a lower bound.  Adds the chunks
+// compared to `chunks`.
+template <typename Pos>
+__device__ __forceinline__ int walk_lcp(const uint32_t* q_s, int i, int rem,
+                                        const uint4* __restrict__ text_v,
+                                        size_t last_vec, Pos g,
+                                        int max_chunks, int& chunks) {
+  const int nch = min((rem + 15) >> 4, max_chunks);
+  const size_t a = (size_t)g >> 4;
+  const unsigned sh = (unsigned)g & 15u;
+  uint4 v0 = __ldg(text_v + min(a, last_vec));
+  uint4 v1 = __ldg(text_v + min(a + 1, last_vec));
+  for (int ch = 0; ch < nch; ++ch) {
+    const uint4 v2 = ch + 1 < nch ? __ldg(text_v + min(a + ch + 2, last_vec))
+                                  : v1;
+    uint32_t tw[4];
+    text_words(v0, v1, sh, tw);
+    ++chunks;
+    const int n = mismatch16(q_s, i + 16 * ch, tw);
+    if (n < 16) return min(16 * ch + n, rem);
+    v0 = v1;
+    v1 = v2;
+  }
+  return min(16 * nch, rem);
+}
+
+// A lane's shared arrays of the window-wide compare, kWinBytes from `p`.
+struct Window {
+  unsigned char* lo;  // kGroup Pos entries: each position's interval start
+  int* start;         // each position's first pair
+  int* best;          // each position's largest LCP
+  __device__ Window(uint8_t* p)
+      : lo(p), start(reinterpret_cast<int*>(p + 8 * kGroup)),
+        best(reinterpret_cast<int*>(p + 12 * kGroup)) {}
+};
+
+// The LCP of read bytes [i, i + rem) against the 16 text bytes from byte
+// `sh` of (v0, v1), capped at 16: walk_lcp with max_chunks 1 on vectors
+// already loaded.
+__device__ __forceinline__ int first_chunk_lcp(const uint32_t* q_s, int i,
+                                               int rem, const uint4& v0,
+                                               const uint4& v1, unsigned sh) {
+  uint32_t tw[4];
+  text_words(v0, v1, sh, tw);
+  return min(mismatch16(q_s, i, tw), rem);
+}
+
+// The window-wide compare.  Positions wb + t with `take` (0 < cnt <= C)
+// put their (position, candidate) pairs in one list, ordered by a prefix
+// sum of the counts over the group; thread t takes pairs t, t + kGroup, ...
+// and raises its position's w.best[j] by atomicMax; w.best[j] is -1 for a
+// position without pairs.  kFirstChunk: chunk 0 of each pair only (a
+// result of 16 with more than 16 bases left is a lower bound), in a
+// two-deep pipeline: a pair's text and the next pair's suffix-array entry
+// are in flight while a pair is compared.  Otherwise each pair is walked
+// to its first mismatching chunk, the next pair's suffix-array entry in
+// flight during the walk.
+template <typename Pos, bool kFirstChunk>
+__device__ __forceinline__ void window_compare(
+    const uint32_t* q_s, Window w, const uint4* __restrict__ text_v,
+    size_t last_vec, const Pos* __restrict__ sa, int wb, int len, bool take,
+    Pos lo, int cnt, int t, unsigned gmask, int& chunks) {
+  const int mine = take ? cnt : 0;
+  int incl = mine;
+#pragma unroll
+  for (int d = 1; d < kGroup; d <<= 1) {
+    const int x = __shfl_up_sync(gmask, incl, d, kGroup);
+    if (t >= d) incl += x;
+  }
+  const int total = __shfl_sync(gmask, incl, kGroup - 1, kGroup);
+  Pos* lo_s = reinterpret_cast<Pos*>(w.lo);
+  lo_s[t] = lo;
+  w.start[t] = incl - mine;
+  w.best[t] = -1;
+  __syncwarp(gmask);
+  // the pair's position: the last one whose pairs start at or before q
+  auto owner = [&](int q) {
+    int j = 0;
+#pragma unroll
+    for (int s = kGroup / 2; s > 0; s >>= 1)
+      if (w.start[j + s] <= q) j += s;
+    return j;
+  };
+  // pair q's position j and suffix-array entry
+  auto entry = [&](int q, int& j) {
+    j = owner(q);
+    return __ldg(sa + lo_s[j] + (q - w.start[j]));
+  };
+  int q = t, j = 0;
+  Pos g = 0;
+  if (q < total) g = entry(q, j);
+  if constexpr (kFirstChunk) {
+    auto text = [&](Pos g, uint4& v0, uint4& v1) {
+      const size_t a = (size_t)g >> 4;
+      v0 = __ldg(text_v + min(a, last_vec));
+      v1 = __ldg(text_v + min(a + 1, last_vec));
+    };
+    uint4 v0 = make_uint4(0, 0, 0, 0), v1 = v0;
+    if (q < total) text(g, v0, v1);
+    int jn = 0;
+    Pos gn = 0;
+    if (q + kGroup < total) gn = entry(q + kGroup, jn);
+    while (q < total) {
+      const int qn = q + kGroup;
+      uint4 n0 = v0, n1 = v1;
+      if (qn < total) text(gn, n0, n1);
+      int jnn = 0;
+      Pos gnn = 0;
+      if (qn + kGroup < total) gnn = entry(qn + kGroup, jnn);
+      const int p = wb + j;
+      ++chunks;
+      atomicMax(&w.best[j], first_chunk_lcp(q_s, p, len - p, v0, v1,
+                                             (unsigned)g & 15u));
+      q = qn;
+      j = jn;
+      g = gn;
+      v0 = n0;
+      v1 = n1;
+      jn = jnn;
+      gn = gnn;
+    }
+  } else {
+    while (q < total) {
+      const int qn = q + kGroup;
+      int jn = 0;
+      Pos gn = 0;
+      if (qn < total) gn = entry(qn, jn);
+      const int p = wb + j;
+      atomicMax(&w.best[j], walk_lcp<Pos>(q_s, p, len - p, text_v, last_vec,
+                                          g, INT_MAX, chunks));
+      q = qn;
+      j = jn;
+      g = gn;
+    }
+  }
+  __syncwarp(gmask);
+}
+
+// The largest LCP of read bytes [i, len) against the cnt candidates
+// sa[lo, lo + cnt), each LCP left in lcp_s[c], by walking compares: the
+// prefix scan's compare at a hit.
+template <typename Pos>
+__device__ __forceinline__ int warp_walk_lstar(
+    const uint32_t* q_s, int* lcp_s, const uint4* __restrict__ text_v,
+    size_t last_vec, const Pos* __restrict__ sa, int i, int len, Pos lo,
+    int cnt, int t, unsigned gmask, int& chunks) {
+  int best = -1;
+  for (int c = t; c < cnt; c += kGroup) {
+    const int l = walk_lcp<Pos>(q_s, i, len - i, text_v, last_vec,
+                                __ldg(sa + lo + c), INT_MAX, chunks);
+    lcp_s[c] = l;
+    best = max(best, l);
+  }
+  __syncwarp(gmask);
+  return __reduce_max_sync(gmask, best);
+}
+
+// Adds the group's chunk counts to `chunks_read` (when not null).
+__device__ __forceinline__ void count_chunks(unsigned long long* chunks_read,
+                                             int chunks, int t,
+                                             unsigned gmask) {
+  if (chunks_read == nullptr) return;
+  const int n = __reduce_add_sync(gmask, chunks);
+  if (t == 0) atomicAdd(chunks_read, (unsigned long long)n);
+}
+
 template <typename Pos, bool kPrefix>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 mmp_scan_kernel(const uint8_t* __restrict__ codes,   // (n_lanes, L)
@@ -416,7 +697,8 @@ mmp_scan_kernel(const uint8_t* __restrict__ codes,   // (n_lanes, L)
                 int32_t* __restrict__ out_pos,       // (n_lanes, M*C)
                 uint8_t* __restrict__ out_vld,       // (n_lanes, M*C)
                 int32_t* __restrict__ meta,          // (n_lanes, 4)
-                unsigned long long* rows_read) {     // nullptr: not counted
+                unsigned long long* rows_read,       // nullptr: not counted
+                unsigned long long* chunks_read) {   // prefix route only
   extern __shared__ uint4 smem[];
   const int slot = threadIdx.x / kGroup;          // the lane within the block
   const int t = threadIdx.x & (kGroup - 1);       // the thread within the lane
@@ -426,10 +708,16 @@ mmp_scan_kernel(const uint8_t* __restrict__ codes,   // (n_lanes, L)
   if (lane >= n_lanes) return;  // uniform across the group
 
   uint8_t* sm = reinterpret_cast<uint8_t*>(smem) +
-                (size_t)slot * lane_smem_bytes(L, C);
+                (size_t)slot * (kPrefix ? prefix_smem_bytes(L, C)
+                                        : lane_smem_bytes(L, C));
   uint32_t* pw_s = reinterpret_cast<uint32_t*>(sm);
   uint32_t* q_s = reinterpret_cast<uint32_t*>(sm + 4 * L);
   int* lcp_s = reinterpret_cast<int*>(sm + 4 * L + round16(L + kReadPad));
+  // the prefix route's window-wide compare, behind the k-mer route's layout
+  const Window win(sm + lane_smem_bytes(L, C));
+  const uint4* text_v = reinterpret_cast<const uint4*>(text_w);
+  const size_t last_vec = (last_word + 1) / 4 - 1;
+  int chunks = 0;
 
   const int len = load_lane(codes, pw, lens, lane, L, t, pw_s, q_s, gmask);
 
@@ -442,6 +730,10 @@ mmp_scan_kernel(const uint8_t* __restrict__ codes,   // (n_lanes, L)
   bool w_found = false;
   Pos w_lo = 0;
   int w_cnt = 0;
+  // prefix route: window positions compared so far, and thread t's
+  // position not settled by its window pass
+  int w_done = 0;
+  bool w_open = false;
   while (i + k <= len && nm < M && steps < max_steps) {
     if (i >= wb + ww) {
       wb = i;
@@ -449,6 +741,8 @@ mmp_scan_kernel(const uint8_t* __restrict__ codes,   // (n_lanes, L)
                min(len - k - i + 1, max_steps - steps));
       w_found = false;
       w_cnt = 0;
+      w_done = 0;
+      w_open = false;
       int rows = 0;
       if (t < ww) {
         if constexpr (kPrefix) {
@@ -468,26 +762,61 @@ mmp_scan_kernel(const uint8_t* __restrict__ codes,   // (n_lanes, L)
         if (t == 0) atomicAdd(rows_read, (unsigned long long)rows);
       }
     }
-    // consume the window from i on, in the sequential order: everything
-    // before the first k-mer found with cnt <= C is a miss or an overflow
     const int off = i - wb;
+    int lim = ww;  // the window positions known to the consume below
+    if constexpr (kPrefix) {
+      // chunk 0 of every candidate of the next kPart positions from i,
+      // once the scan reaches them (an advance past a hit skips the rest
+      // uncompared): it settles most positions, whose candidates share
+      // only the seed's bases with the read
+      if (off >= w_done) {
+        w_done = min(off + kPart, ww);
+        const bool part = t >= off && t < w_done;
+        window_compare<Pos, true>(q_s, win, text_v, last_vec, sa, wb, len,
+                                  part && w_found && w_cnt <= C, w_lo, w_cnt,
+                                  t, gmask, chunks);
+        // chunk 0's largest LCP is the position's when no candidate
+        // matched chunk 0 whole or the read ends inside it; below k it is
+        // no hit, which the scan consumes as a miss: one step, advance 1
+        const int b = win.best[t];
+        if (part)
+          w_open = w_found && w_cnt <= C &&
+                   !((b < 16 || len - wb - t <= 16) && b < k);
+      }
+      lim = w_done;
+    }
+    // consume the window from i on, in the sequential order: everything
+    // before the first k-mer found with cnt <= C (on the prefix route,
+    // not settled without a hit) is a miss or an overflow
     const unsigned ahead = ~low_bits(off);
-    const unsigned candm =
-        (__ballot_sync(gmask, w_found && w_cnt <= C) >> gbase) & ahead;
+    bool open;
+    if constexpr (kPrefix)
+      open = w_open;
+    else
+      open = w_found && w_cnt <= C;
+    const unsigned candm = (__ballot_sync(gmask, open) >> gbase) & ahead;
     const unsigned overm =
         (__ballot_sync(gmask, w_found && w_cnt > C) >> gbase) & ahead;
-    const int p = candm ? __ffs((int)candm) - 1 : ww;
+    const int p = candm ? __ffs((int)candm) - 1 : lim;
     steps += p - off;
     if (overm & low_bits(p)) over = 1;
     i = wb + p;
-    if (p == ww) continue;
+    if (p == lim) continue;
 
     // position i: a k-mer with cnt <= C candidates
     ++steps;
     const Pos lo = __shfl_sync(gmask, w_lo, p, kGroup);
     const int cnt = __shfl_sync(gmask, w_cnt, p, kGroup);
-    const int lstar = warp_lstar<Pos>(q_s, lcp_s, text_w, last_word, sa, i,
-                                      len, lo, cnt, t, gmask);
+    int lstar;
+    if constexpr (kPrefix) {
+      // a hit, or a position that may be one: every candidate walked, its
+      // LCP kept for the slots
+      lstar = warp_walk_lstar<Pos>(q_s, lcp_s, text_v, last_vec, sa, i, len,
+                                   lo, cnt, t, gmask, chunks);
+    } else {
+      lstar = warp_lstar<Pos>(q_s, lcp_s, text_w, last_word, sa, i, len, lo,
+                              cnt, t, gmask);
+    }
     if (lstar >= k) {
       // candidates and the zeros behind them up to a multiple of 32 slots
       // by 4-byte stores, the rest of the MMP's C slots by group_zero
@@ -533,6 +862,7 @@ mmp_scan_kernel(const uint8_t* __restrict__ codes,   // (n_lanes, L)
   }
   if (t == 0)
     reinterpret_cast<int4*>(meta)[lane] = make_int4(nm, over, mlen, steps);
+  if constexpr (kPrefix) count_chunks(chunks_read, chunks, t, gmask);
 }
 
 // The prefix route's interval at position p at a refinement level chosen
@@ -599,7 +929,8 @@ facts_kernel(const uint8_t* __restrict__ codes, const int32_t* __restrict__ pw,
              const Pos* __restrict__ table_lo,
              const uint32_t* __restrict__ packed, int pbits, int k, int C,
              uint32_t hmask, int ht_probes,
-             const int8_t* __restrict__ level, int32_t* __restrict__ out) {
+             const int8_t* __restrict__ level, int32_t* __restrict__ out,
+             unsigned long long* chunks_read) {   // nullptr: not counted
   extern __shared__ uint4 smem[];
   const int slot = threadIdx.x / kGroup;
   const int t = threadIdx.x & (kGroup - 1);
@@ -608,10 +939,13 @@ facts_kernel(const uint8_t* __restrict__ codes, const int32_t* __restrict__ pw,
   const int lane = blockIdx.x * kLanesPerBlock + slot;
   if (lane >= n_lanes) return;
   uint8_t* sm = reinterpret_cast<uint8_t*>(smem) +
-                (size_t)slot * lane_smem_bytes(L, C);
+                (size_t)slot * facts_smem_bytes(L);
   uint32_t* pw_s = reinterpret_cast<uint32_t*>(sm);
   uint32_t* q_s = reinterpret_cast<uint32_t*>(sm + 4 * L);
-  int* lcp_s = reinterpret_cast<int*>(sm + 4 * L + round16(L + kReadPad));
+  const Window win(sm + 4 * L + round16(L + kReadPad));
+  const uint4* text_v = reinterpret_cast<const uint4*>(text_w);
+  const size_t last_vec = (last_word + 1) / 4 - 1;
+  int chunks = 0;
   const int len = load_lane(codes, pw, lens, lane, L, t, pw_s, q_s, gmask);
   const uint8_t* q8 = reinterpret_cast<const uint8_t*>(q_s);
   const unsigned key1_shift = 2u * (32u - (unsigned)k);
@@ -646,18 +980,11 @@ facts_kernel(const uint8_t* __restrict__ codes, const int32_t* __restrict__ pw,
                    ht_probes, found, lo, cnt);
       }
     }
-    int mine = -1;
-    unsigned todo =
-        __ballot_sync(gmask, found && cnt > 0 && cnt <= C) >> gbase;
-    while (todo) {
-      const int j = __ffs((int)todo) - 1;
-      todo &= todo - 1;
-      const Pos jlo = __shfl_sync(gmask, lo, j, kGroup);
-      const int jcnt = __shfl_sync(gmask, cnt, j, kGroup);
-      const int l = warp_lstar<Pos>(q_s, lcp_s, text_w, last_word, sa,
-                                    wb + j, len, jlo, jcnt, t, gmask);
-      if (t == j) mine = l;
-    }
+    // every found position's largest LCP, in one pass over the window
+    window_compare<Pos, false>(q_s, win, text_v, last_vec, sa, wb, len,
+                               found && cnt > 0 && cnt <= C, lo, cnt, t,
+                               gmask, chunks);
+    const int mine = win.best[t];
     if (p < L) {
       if constexpr (kPrefix)
         out[row + p] = mine;
@@ -665,7 +992,9 @@ facts_kernel(const uint8_t* __restrict__ codes, const int32_t* __restrict__ pw,
         reinterpret_cast<int2*>(out)[row + p] =
             make_int2(found ? cnt : -1, mine);
     }
+    __syncwarp(gmask);  // the next window refills win
   }
+  count_chunks(chunks_read, chunks, t, gmask);
 }
 
 // The sequential advance rule of each lane over the merged facts `gfact`
@@ -789,14 +1118,13 @@ slots_kernel(const uint8_t* __restrict__ codes, const int32_t* __restrict__ pw,
   }
 }
 
-// Sets the dynamic shared memory of `kernel` for lane rows of width L and
-// C candidates; returns its bytes, or -1 with `err` set.
+// Sets the dynamic shared memory of `kernel` for `lane_bytes` a lane (the
+// *_smem_bytes above); returns its bytes, or -1 with `err` set.
 template <typename Kernel>
-int lane_smem(Kernel kernel, int L, int C, cudaError_t& err) {
-  // per lane 5 L bytes of rows, the read's padding and one int32 LCP per
-  // candidate; above 48 KB only by opt-in (a capacity the card cannot
-  // hold fails here, with the CUDA error)
-  const int smem = kLanesPerBlock * lane_smem_bytes(L, C);
+int lane_smem(Kernel kernel, int lane_bytes, cudaError_t& err) {
+  // above 48 KB only by opt-in (a capacity the card cannot hold fails
+  // here, with the CUDA error)
+  const int smem = kLanesPerBlock * lane_bytes;
   err = cudaSuccess;
   if (smem > 48 * 1024) {
     err = cudaFuncSetAttribute(kernel,
@@ -821,12 +1149,19 @@ int launch_scan(const void* codes, const void* pw, const void* lens,
                 const void* txp_of_pos, const void* txp_offsets, int k,
                 int C, int M, int max_steps, int ht_bits, int ht_probes,
                 int skip_jump, void* out_txp, void* out_pos, void* out_vld,
-                void* meta, void* rows_read, int device, void* stream) {
+                void* meta, void* rows_read, void* chunks_read, int device,
+                void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (n_lanes == 0) return 0;
   if (L % 8 != 0 || text_bytes < 4) return (int)cudaErrorInvalidValue;
-  const int smem = lane_smem(mmp_scan_kernel<Pos, kPrefix>, L, C, err);
+  // the prefix route reads the text as aligned 16-byte vectors
+  if (kPrefix && ((uintptr_t)text % 16 != 0 || text_bytes < 16))
+    return (int)cudaErrorInvalidValue;
+  const int smem = lane_smem(mmp_scan_kernel<Pos, kPrefix>,
+                             kPrefix ? prefix_smem_bytes(L, C)
+                                     : lane_smem_bytes(L, C),
+                             err);
   if (smem < 0) return (int)err;
   const dim3 grid((n_lanes + kLanesPerBlock - 1) / kLanesPerBlock);
   mmp_scan_kernel<Pos, kPrefix><<<grid, kWarpsPerBlock * 32, smem,
@@ -838,7 +1173,8 @@ int launch_scan(const void* codes, const void* pw, const void* lens,
       max_steps, hash_mask(ht_bits), ht_probes, skip_jump,
       (const Pos*)table_lo, (const uint32_t*)packed, pbits,
       (int32_t*)out_txp, (int32_t*)out_pos, (uint8_t*)out_vld,
-      (int32_t*)meta, (unsigned long long*)rows_read);
+      (int32_t*)meta, (unsigned long long*)rows_read,
+      (unsigned long long*)chunks_read);
   return (int)cudaGetLastError();
 }
 
@@ -848,9 +1184,10 @@ int launch_facts(const void* codes, const void* pw, const void* lens,
                  const void* sa, const void* ht, const void* ht_hi,
                  const void* table_lo, const void* packed, int pbits, int k,
                  int C, int ht_bits, int ht_probes, const void* level,
-                 void* out, void* stream) {
+                 void* out, void* chunks_read, void* stream) {
   cudaError_t err;
-  const int smem = lane_smem(facts_kernel<Pos, kPrefix>, L, C, err);
+  const int smem = lane_smem(facts_kernel<Pos, kPrefix>, facts_smem_bytes(L),
+                             err);
   if (smem < 0) return (int)err;
   const dim3 grid((n_lanes + kLanesPerBlock - 1) / kLanesPerBlock);
   facts_kernel<Pos, kPrefix><<<grid, kWarpsPerBlock * 32, smem,
@@ -859,7 +1196,8 @@ int launch_facts(const void* codes, const void* pw, const void* lens,
       n_lanes, L, (const uint32_t*)text, (size_t)(text_bytes / 4 - 1),
       (const Pos*)sa, (const int4*)ht, (const int32_t*)ht_hi,
       (const Pos*)table_lo, (const uint32_t*)packed, pbits, k, C,
-      hash_mask(ht_bits), ht_probes, (const int8_t*)level, (int32_t*)out);
+      hash_mask(ht_bits), ht_probes, (const int8_t*)level, (int32_t*)out,
+      (unsigned long long*)chunks_read);
   return (int)cudaGetLastError();
 }
 
@@ -874,7 +1212,8 @@ int launch_slots(const void* codes, const void* pw, const void* lens,
                  const void* hit_len, const void* rmeta, void* out_txp,
                  void* out_pos, void* out_vld, void* stream) {
   cudaError_t err;
-  const int smem = lane_smem(slots_kernel<Pos, kPrefix>, L, C, err);
+  const int smem = lane_smem(slots_kernel<Pos, kPrefix>,
+                             lane_smem_bytes(L, C), err);
   if (smem < 0) return (int)err;
   const dim3 grid((n_lanes + kLanesPerBlock - 1) / kLanesPerBlock);
   slots_kernel<Pos, kPrefix><<<grid, kWarpsPerBlock * 32, smem,
@@ -912,7 +1251,7 @@ int sf_mmp_scan(const void* codes, const void* pw, const void* lens,
       codes, pw, lens, n_lanes, L, text, text_bytes, sa, ht, nullptr,
       nullptr, nullptr, 0, txp_of_pos, txp_offsets, k, C, M, max_steps,
       ht_bits, ht_probes, skip_jump, out_txp, out_pos, out_vld, meta,
-      rows_read, device, stream);
+      rows_read, nullptr, device, stream);
 }
 
 // The same for a 64-bit index: sa and txp_offsets are int64, the lo
@@ -929,14 +1268,16 @@ int sf_mmp_scan64(const void* codes, const void* pw, const void* lens,
       codes, pw, lens, n_lanes, L, text, text_bytes, sa, ht, ht_hi, nullptr,
       nullptr, 0, txp_of_pos, txp_offsets, k, C, M, max_steps, ht_bits,
       ht_probes, skip_jump, out_txp, out_pos, out_vld, meta, rows_read,
-      device, stream);
+      nullptr, device, stream);
 }
 
 // The prefix route (an index without a k-mer table): `table_lo` holds the
 // 4^pbits + 1 interval starts and `packed` the A-substituted 16-base words
 // of the text with 512 words of zeros behind it.  `rows_read` counts the
-// table entries and search steps read.  sa, table_lo and txp_offsets are
-// int32 (sf_mmp_scan_prefix) or int64 (sf_mmp_scan_prefix64).
+// table entries and search steps read; `chunks_read`, when not null, a
+// 64-bit device counter, the 16-byte text chunks the compare reads.
+// `text` must be 16-byte aligned.  sa, table_lo and txp_offsets are int32
+// (sf_mmp_scan_prefix) or int64 (sf_mmp_scan_prefix64).
 int sf_mmp_scan_prefix(const void* codes, const void* pw, const void* lens,
                        int n_lanes, int L, const void* text,
                        long long text_bytes, const void* sa,
@@ -944,13 +1285,13 @@ int sf_mmp_scan_prefix(const void* codes, const void* pw, const void* lens,
                        const void* txp_of_pos, const void* txp_offsets, int k,
                        int C, int M, int max_steps, int skip_jump,
                        void* out_txp, void* out_pos, void* out_vld,
-                       void* meta, void* rows_read, int device,
-                       void* stream) {
+                       void* meta, void* rows_read, void* chunks_read,
+                       int device, void* stream) {
   return launch_scan<int32_t, true>(
       codes, pw, lens, n_lanes, L, text, text_bytes, sa, nullptr, nullptr,
       table_lo, packed, pbits, txp_of_pos, txp_offsets, k, C, M, max_steps,
-      0, 0, skip_jump, out_txp, out_pos, out_vld, meta, rows_read, device,
-      stream);
+      0, 0, skip_jump, out_txp, out_pos, out_vld, meta, rows_read,
+      chunks_read, device, stream);
 }
 
 int sf_mmp_scan_prefix64(const void* codes, const void* pw, const void* lens,
@@ -960,13 +1301,13 @@ int sf_mmp_scan_prefix64(const void* codes, const void* pw, const void* lens,
                          const void* txp_of_pos, const void* txp_offsets,
                          int k, int C, int M, int max_steps, int skip_jump,
                          void* out_txp, void* out_pos, void* out_vld,
-                         void* meta, void* rows_read, int device,
-                         void* stream) {
+                         void* meta, void* rows_read, void* chunks_read,
+                         int device, void* stream) {
   return launch_scan<long long, true>(
       codes, pw, lens, n_lanes, L, text, text_bytes, sa, nullptr, nullptr,
       table_lo, packed, pbits, txp_of_pos, txp_offsets, k, C, M, max_steps,
-      0, 0, skip_jump, out_txp, out_pos, out_vld, meta, rows_read, device,
-      stream);
+      0, 0, skip_jump, out_txp, out_pos, out_vld, meta, rows_read,
+      chunks_read, device, stream);
 }
 
 // The facts mode on one shard (see facts_kernel): `pos64` selects the
@@ -974,21 +1315,25 @@ int sf_mmp_scan_prefix64(const void* codes, const void* pw, const void* lens,
 // otherwise `table_lo`, `packed`).  `level` is null but for the prefix
 // route's second pass.  `out` is (n_lanes, L, 2) int32 on the k-mer
 // route, (n_lanes, L, 4) on the prefix route's first pass and (n_lanes, L)
-// on its second, 16-byte aligned.
+// on its second, 16-byte aligned.  `chunks_read`, when not null, points
+// at a 64-bit device counter to which the kernel adds the 16-byte text
+// chunks its compare reads.  `text` must be 16-byte aligned.
 int sf_mmp_facts(int pos64, int prefix, const void* codes, const void* pw,
                  const void* lens, int n_lanes, int L, const void* text,
                  long long text_bytes, const void* sa, const void* ht,
                  const void* ht_hi, const void* table_lo, const void* packed,
                  int pbits, int k, int C, int ht_bits, int ht_probes,
-                 const void* level, void* out, int device, void* stream) {
+                 const void* level, void* out, void* chunks_read, int device,
+                 void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (n_lanes == 0) return 0;
-  if (L % 8 != 0 || text_bytes < 4) return (int)cudaErrorInvalidValue;
+  if (L % 8 != 0 || text_bytes < 16 || (uintptr_t)text % 16 != 0)
+    return (int)cudaErrorInvalidValue;
   auto go = [&](auto fn) {
     return fn(codes, pw, lens, n_lanes, L, text, text_bytes, sa, ht, ht_hi,
               table_lo, packed, pbits, k, C, ht_bits, ht_probes, level, out,
-              stream);
+              chunks_read, stream);
   };
   if (pos64)
     return prefix ? go(launch_facts<long long, true>)

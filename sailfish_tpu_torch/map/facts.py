@@ -50,9 +50,11 @@ from .scan import (
     _coarse,
     _lcp,
     _probe,
+    _counter,
     _refine,
     card_lanes,
     clean_counts,
+    needed_chunks,
 )
 
 OVERFLOW = -2          # merged fact: the interval holds more than C
@@ -99,14 +101,18 @@ def _seed_args(index):
             index.ht_probes)
 
 
-def facts_cuda(lanes, index, *, cand_cap, level=None):
+def facts_cuda(lanes, index, *, cand_cap, level=None, chunks_read=None):
     """Launch the facts mode (`sf_mmp_facts`) on the lanes' CUDA device;
-    `facts_cuda.launches` counts successful launches."""
+    `facts_cuda.launches` counts successful launches.  `chunks_read`, when
+    given, is a one-element int64 tensor on the device to which the kernel
+    adds the 16-byte text chunks its compare reads (`work["chunks"]` of
+    the plain version counts those needed)."""
     from .. import _ext
 
     dev, B2, L, (codes, pw, lens) = card_lanes(lanes, index, cand_cap, 1,
                                                "facts_cuda")
     level = _level_arg(index, level, B2, L, dev)
+    chunks_ptr = _counter(chunks_read, dev, "chunks_read")
     kl = _ext.load()
     out = torch.empty(_facts_shape(index, level, B2, L), dtype=torch.int32,
                       device=dev)
@@ -118,7 +124,8 @@ def facts_cuda(lanes, index, *, cand_cap, level=None):
         index.codes.data_ptr(), index.codes.numel(), index.sa.data_ptr(),
         ht, ht_hi, table_lo, packed, pbits, index.k, cand_cap, ht_bits,
         ht_probes, None if level is None else level.data_ptr(),
-        out.data_ptr(), dev.index, torch.cuda.current_stream(dev).cuda_stream)
+        out.data_ptr(), chunks_ptr, dev.index,
+        torch.cuda.current_stream(dev).cuda_stream)
     kl.check(err, "facts kernel launch")
     facts_cuda.launches += 1
     return out
@@ -148,9 +155,10 @@ def _largest_lcp(lanes, index, lane, p, lo, cnt, work):
     g = index.sa.long()[lo[own] + c]
     lcp = _lcp(codes, lens, index.codes, lane[own], p[own], g).long()
     if work is not None:
-        at_end = p[own] + lcp >= lens[lane[own]]
+        rem = lens[lane[own]] - p[own]
         work["candidates"] += own.numel()
-        work["text_bytes"] += int(lcp.sum() + (~at_end).sum())
+        work["text_bytes"] += int(lcp.sum() + (lcp < rem).sum())
+        work["chunks"] += int(needed_chunks(lcp, rem).sum())
     best = torch.full((n,), -1, dtype=torch.int64, device=lane.device)
     best.scatter_reduce_(0, own, lcp, reduce="amax")
     return best, own, c, g, lcp
@@ -205,7 +213,7 @@ def facts_reference(lanes, index, *, cand_cap, level=None,
     pair at once; same output as the kernel.  `work`, when given, receives
     the data-dependent terms of the kernel's bound, with the keys of
     map/scan.py `mmp_scan_reference`'s ("buckets" or "lookups" and
-    "search_steps", "candidates", "text_bytes")."""
+    "search_steps", "candidates", "text_bytes", "chunks")."""
     _check(lanes, index, cand_cap, 1)
     codes, pw = lanes["codes"], lanes["pw"]
     lens = lanes["lens"].to(torch.int64)
@@ -213,7 +221,7 @@ def facts_reference(lanes, index, *, cand_cap, level=None,
     B2, L = codes.shape
     k, C = index.k, cand_cap
     if work is not None:
-        work.update(candidates=0, text_bytes=0)
+        work.update(candidates=0, text_bytes=0, chunks=0)
     lane, p = _live_pairs(lanes, k)
     shape = _facts_shape(index, level, B2, L)
     if index.prefix_route:
@@ -504,7 +512,7 @@ def slots_reference(lanes, index, hits, hit_len, meta, level, *, txp_base,
     p = hits[lane, m].long()
     reads = torch.zeros(2, dtype=torch.int64, device=dev)
     if work is not None:
-        work.update(candidates=0, text_bytes=0)
+        work.update(candidates=0, text_bytes=0, chunks=0)
     if index.prefix_route:
         lo, cnt = at_level(index, pw, lane, p, level[lane, p].long(), reads)
         if work is not None:

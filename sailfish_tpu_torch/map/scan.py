@@ -117,9 +117,20 @@ def card_lanes(lanes: dict, index: TorchIndex, cand_cap: int,
     return dev, B2, L, rows
 
 
+def _counter(t: torch.Tensor | None, dev, name: str):
+    """A measurement counter's pointer: one int64 on the lanes' device,
+    or None."""
+    if t is None:
+        return None
+    if t.dtype != torch.int64 or t.numel() != 1 or t.device != dev:
+        raise ValueError(f"{name} must be one int64 on the lanes' device")
+    return t.data_ptr()
+
+
 def mmp_scan_cuda(lanes: dict, index: TorchIndex, *, cand_cap: int,
                   max_mmps: int, max_steps: int, skip_jump: bool = False,
-                  out=None, rows_read: torch.Tensor | None = None):
+                  out=None, rows_read: torch.Tensor | None = None,
+                  chunks_read: torch.Tensor | None = None):
     """Launch csrc/mmp_scan.cu on the current stream of the lanes' CUDA
     device, in the index's route and width: `sf_mmp_scan` (or
     `sf_mmp_scan64` on a 64-bit index) through the k-mer table,
@@ -134,15 +145,17 @@ def mmp_scan_cuda(lanes: dict, index: TorchIndex, *, cand_cap: int,
     given, is a one-element int64 tensor on the device to which the kernel
     adds the 64-byte table rows it reads, or on the prefix route the
     prefix-table lookups and binary-search steps (a measurement aid: it
-    costs an atomic per probe window)."""
+    costs an atomic per probe window).  `chunks_read`, the same on the
+    prefix route only, receives the 16-byte text chunks its compare reads
+    (`work["chunks"]` of the plain version counts those needed)."""
     from .. import _ext
 
     dev, B2, L, (codes, pw, lens) = card_lanes(lanes, index, cand_cap,
                                                max_mmps, "mmp_scan_cuda")
-    if rows_read is not None and (
-            rows_read.dtype != torch.int64 or rows_read.numel() != 1
-            or rows_read.device != dev):
-        raise ValueError("rows_read must be one int64 on the lanes' device")
+    rows_ptr = _counter(rows_read, dev, "rows_read")
+    chunks_ptr = _counter(chunks_read, dev, "chunks_read")
+    if chunks_ptr is not None and not index.prefix_route:
+        raise ValueError("chunks_read is counted on the prefix route only")
     kl = _ext.load()
     C, M = cand_cap, max_mmps
     txp, pos, vld, meta = _outputs(B2, C, M, dev, out)
@@ -154,20 +167,21 @@ def mmp_scan_cuda(lanes: dict, index: TorchIndex, *, cand_cap: int,
         seed = (index.table_lo.data_ptr(), index.packed.data_ptr(),
                 index.prefix_bases)
         table = ()
+        counters = (rows_ptr, chunks_ptr)
     else:
         # the 64-bit scan takes the table's high words after its rows
         scan = kl.lib.sf_mmp_scan64 if wide else kl.lib.sf_mmp_scan
         seed = (index.ht.data_ptr(),
                 *((index.ht_hi.data_ptr(),) if wide else ()))
         table = (index.ht_bits, index.ht_probes)
+        counters = (rows_ptr,)
     err = scan(
         codes.data_ptr(), pw.data_ptr(), lens.data_ptr(), B2, L,
         index.codes.data_ptr(), index.codes.numel(), index.sa.data_ptr(),
         *seed, index.txp_of_pos.data_ptr(), index.txp_offsets.data_ptr(),
         index.k, C, M, max_steps, *table, int(skip_jump), txp.data_ptr(),
-        pos.data_ptr(), vld.data_ptr(), meta.data_ptr(),
-        None if rows_read is None else rows_read.data_ptr(), dev.index,
-        stream,
+        pos.data_ptr(), vld.data_ptr(), meta.data_ptr(), *counters,
+        dev.index, stream,
     )
     kl.check(err, "mmp_scan kernel launch")
     if index.prefix_route:
@@ -318,6 +332,15 @@ def _lcp(codes, lens, text, lane, i, g):
     return torch.cat(out) if out else lane.new_zeros(0)
 
 
+def needed_chunks(lcp: torch.Tensor, rem: torch.Tensor) -> torch.Tensor:
+    """Per compared candidate, the 16-byte chunks of the read's remainder
+    (`rem` bases from the compare's start) that a compare stopping at the
+    first mismatching chunk reads, given the candidate's `lcp`: the chunks
+    up to and including the one that holds the first mismatch, all of
+    them when the match reaches the read's end."""
+    return torch.minimum((rem + 15) // 16, lcp // 16 + 1)
+
+
 def mmp_scan_reference(lanes: dict, index: TorchIndex, *, cand_cap: int,
                        max_mmps: int, max_steps: int,
                        skip_jump: bool = False, work: dict | None = None):
@@ -334,10 +357,12 @@ def mmp_scan_reference(lanes: dict, index: TorchIndex, *, cand_cap: int,
     packed word each); on both "candidates" (suffix-array entries read),
     "text_bytes" (text bytes compared, the mismatching one included),
     "stored" (candidates written to a slot, each of which reads
-    `txp_of_pos` and `txp_offsets`) and "seeds" (probed positions that
+    `txp_of_pos` and `txp_offsets`), "seeds" (probed positions that
     found a seed with cnt <= cand_cap, whose `lo` the scan uses: a 64-bit
     index reads its high word for each on the k-mer route) — the
-    data-dependent terms of the kernel's bound."""
+    data-dependent terms of the kernel's bound — and "chunks"
+    (`needed_chunks`: the 16-byte chunks a compare that stops at a
+    candidate's first mismatching chunk reads)."""
     _check(lanes, index, cand_cap, max_mmps)
     codes, pw = lanes["codes"], lanes["pw"]
     lens = lanes["lens"].to(torch.int64)
@@ -355,8 +380,8 @@ def mmp_scan_reference(lanes: dict, index: TorchIndex, *, cand_cap: int,
     sa = index.sa.to(torch.int64)
     # the work counters stay on the device until the scan has ended:
     # buckets, candidates, text_bytes, stored, seeds, lookups,
-    # search_steps
-    n_work = torch.zeros(7, dtype=torch.int64, device=dev)
+    # search_steps, chunks
+    n_work = torch.zeros(8, dtype=torch.int64, device=dev)
     cb = clean_counts(codes) if index.prefix_route else None
     for _ in range(max_steps):
         act = ((i + k <= lens) & (nm < M)).nonzero()[:, 0]
@@ -388,9 +413,10 @@ def mmp_scan_reference(lanes: dict, index: TorchIndex, *, cand_cap: int,
             g = sa[lo[sel][own] + c]
             lcp = _lcp(codes, lens, index.codes, ls[own], is_[own], g).long()
             if work is not None:
-                at_end = is_[own] + lcp >= lens[ls[own]]
+                rem = lens[ls[own]] - is_[own]
                 n_work[1] += own.numel()
-                n_work[2] += lcp.sum() + (~at_end).sum()
+                n_work[2] += lcp.sum() + (lcp < rem).sum()
+                n_work[7] += needed_chunks(lcp, rem).sum()
             lstar = torch.full((sel.numel(),), -1, dtype=torch.int64,
                                device=dev)
             lstar.scatter_reduce_(0, own, lcp, reduce="amax")
@@ -419,9 +445,10 @@ def mmp_scan_reference(lanes: dict, index: TorchIndex, *, cand_cap: int,
         i[act] = ia + adv
     if work is not None:
         keys = ("buckets", "candidates", "text_bytes", "stored", "seeds",
-                "lookups", "search_steps")
+                "lookups", "search_steps", "chunks")
         got = dict(zip(keys, n_work.tolist()))
-        drop = ("buckets",) if index.prefix_route else keys[5:]
+        drop = (("buckets",) if index.prefix_route
+                else ("lookups", "search_steps"))
         work.update({kk: v for kk, v in got.items() if kk not in drop})
     meta = torch.stack([nm, over.long(), mlen, steps], dim=1)
     return txp, pos, vld, meta.to(torch.int32)

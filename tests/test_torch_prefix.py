@@ -151,7 +151,8 @@ def test_dispatch_and_work_of_the_prefix_route(toy_world, prefix_worlds):
     launches no kernel (on either route's count); the CUDA wrapper
     refuses CPU tensors.  `work` counts the prefix route's reads: a
     lookup per probed position with a clean prefix, up to 2 x 26 search
-    steps per refinement.  A k >= 17 index carries no prefix arrays."""
+    steps per refinement, one to ceil(50 / 16) text chunks a candidate.
+    A k >= 17 index carries no prefix arrays."""
     idx, _, tidx = prefix_worlds[15]
     codes, lens = _reads(toy_world, seed=5)
     lanes = make_oriented_lanes(torch.from_numpy(codes),
@@ -167,12 +168,13 @@ def test_dispatch_and_work_of_the_prefix_route(toy_world, prefix_worlds):
     with pytest.raises(ValueError, match="needs CUDA tensors"):
         mmp_scan_cuda(lanes, tidx, **kw)
     assert set(work) == {"lookups", "search_steps", "candidates",
-                         "text_bytes", "stored", "seeds"}
+                         "text_bytes", "stored", "seeds", "chunks"}
     steps = int(a[3][:, 3].sum())
     assert 0 < work["lookups"] <= steps
     assert 0 < work["search_steps"] <= 4 * 26 * work["lookups"]
     assert work["candidates"] <= 16 * work["seeds"]
     assert work["stored"] >= int(a[2].sum()) > 0
+    assert work["candidates"] <= work["chunks"] <= 4 * work["candidates"]
     assert tidx.packed.shape == (len(idx.codes) + 512,)
     assert tidx.table_lo.shape == (4 ** idx.prefix_bases + 1,)
     k31 = TorchIndex.from_quasi_index(port_index(toy_world["idx"]), "cpu")

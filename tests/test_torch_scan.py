@@ -162,7 +162,7 @@ def test_work_counters_of_the_plain_version(toy_world, cap):
     candidate, at least k text bytes compared for a candidate that
     reached a match, every MMP found from a seed (a probed position whose
     k-mer has at most cand_cap candidates), at most cand_cap candidates a
-    seed."""
+    seed, and between one and ceil(50 / 16) text chunks a candidate."""
     tidx = TorchIndex.from_quasi_index(port_index(toy_world["idx"]), "cpu")
     codes, lens = _reads(toy_world, seed=5)
     lanes = make_oriented_lanes(torch.from_numpy(codes),
@@ -174,7 +174,7 @@ def test_work_counters_of_the_plain_version(toy_world, cap):
     for x, y in zip(a, b):
         assert torch.equal(x, y)
     assert set(work) == {"buckets", "candidates", "text_bytes", "stored",
-                         "seeds"}
+                         "seeds", "chunks"}
     assert all(isinstance(v, int) for v in work.values())
     steps = int(a[3][:, 3].sum())
     assert steps <= work["buckets"] <= steps * tidx.ht_probes
@@ -183,6 +183,7 @@ def test_work_counters_of_the_plain_version(toy_world, cap):
     assert work["text_bytes"] <= work["candidates"] * (U + 1)
     assert int(a[3][:, 0].sum()) <= work["seeds"] <= steps
     assert work["candidates"] <= cap * work["seeds"]
+    assert work["candidates"] <= work["chunks"] <= 4 * work["candidates"]
 
 
 def test_index_text_is_padded_and_hits_are_unchanged(toy_world):
