@@ -74,11 +74,13 @@ result line):
      the port's device backend equal its `--backend refimpl` backend
      (the numpy reference mapper): paired 100 bp at --hitCapacity 64 and
      at --hitCapacity 2, where fragments take the escalation pass;
-     single-end 100 bp reads (-l U); paired 152 bp
+     single-end 100 bp reads (-l U); paired 152 bp (the bench's
+     `oracle_check`, sailfish_tpu_torch/bench.py)
   6. stages: per-batch ms of host pack + copy, device work and host fold
      at the main path's batch size (a synchronize closes each stage),
      then the same batches pipelined as quant runs them under
-     torch.profiler: device busy and idle share, top kernels
+     torch.profiler: device busy and idle share, top kernels (the
+     bench's `stage_breakdown`)
   7. end to end, each through the CLI entry point with the kernels'
      launch counters reset before and read after, outputs checked (TPM
      sums to 1e6, the run was on cuda): `quant -l IU --hitCapacity 64
@@ -141,7 +143,16 @@ result line):
      and the step's EM update alone on a label matrix of the batch's
      shape, with its `index_add_` timed both ways (PAD zeros spread over
      the bins, and all on bin 0)
- 16. the kernel table line, the nvidia-smi line, then the result line
+ 16. bench: `python -m sailfish_tpu_torch.bench`, a process for each
+     world, as a user runs it: `--world uniform` (bench.py's world of
+     20,000 random transcripts, its index cached in .smoke_cache/, 2
+     warm-up and 12 timed batches of 65,536 paired fragments) and
+     `--world gencode` on phase 3's k = 31 index (--bench-reads 10M
+     fragments, 152 timed batches, EM, 16 bootstraps, 16 Gibbs samples,
+     the stage breakdown); every metric line present, finite and from
+     cuda, each run's `--check` (512 fragments against the reference
+     mapper) passed, the scan kernel launched in each timed loop
+ 17. the kernel table line, the nvidia-smi line, then the result line
 
 `--kernel-only` runs phases 1, 3 and 4 (toolchain, world, kernel vs
 plain: both widths, the prefix route, the sharded modes) and prints no
@@ -219,51 +230,6 @@ def nvidia_smi_line() -> str:
 
 
 # ---------------------------------------------------------------- world
-def build_transcriptome(rng, txps: int, bases: float):
-    """Gene-family transcriptome (tools/bench_gencode.py): genes of 4-13
-    exons of 30-200 bases; each of 1-8 isoforms keeps each exon with
-    probability 0.8, so family members share most of their sequence."""
-    seqs, names = [], []
-    total = 0
-    gene = 0
-    while len(seqs) < txps and total < bases:
-        n_ex = int(rng.integers(4, 14))
-        exons = [rng.integers(0, 4, int(rng.integers(30, 201)))
-                 .astype(np.uint8) for _ in range(n_ex)]
-        n_iso = int(min(rng.integers(1, 9), txps - len(seqs)))
-        for i in range(n_iso):
-            keep = rng.random(n_ex) < 0.8
-            keep[rng.integers(0, n_ex)] = True
-            s = np.concatenate([e for e, k in zip(exons, keep) if k])
-            if len(s) < READ_LEN + 60:
-                s = np.concatenate([s, rng.integers(0, 4, READ_LEN + 60)
-                                    .astype(np.uint8)])
-            seqs.append(s)
-            names.append(f"g{gene}.i{i}")
-            total += len(s)
-        gene += 1
-    return names, seqs
-
-
-def simulate_batch(rng, concat, offs, lens, n, read_len=READ_LEN):
-    """n fragments: transcript uniform, length ~N(250, 25) clipped to
-    [read_len + 10, 600] and to the transcript, mate 2
-    reverse-complemented, substitutions at rate ERR
-    (tools/bench_gencode.py simulate_batch)."""
-    t = rng.integers(0, len(lens), n)
-    fl = np.clip(rng.normal(250, 25, n).astype(np.int64), read_len + 10, 600)
-    fl = np.minimum(fl, lens[t])
-    p = (rng.random(n) * (lens[t] - fl + 1)).astype(np.int64)
-    start = offs[t] + p
-    m1 = concat[start[:, None] + np.arange(read_len)]
-    i2 = start[:, None] + (fl[:, None] - read_len) + np.arange(read_len)
-    m2 = (3 - concat[i2][:, ::-1]).astype(np.uint8)
-    for m in (m1, m2):
-        mask = rng.random(m.shape) < ERR
-        m[mask] = (m[mask] + rng.integers(1, 4, mask.sum())) % 4
-    return m1, m2
-
-
 _ACGT = np.frombuffer(b"ACGT", np.uint8)
 
 
@@ -478,6 +444,7 @@ def bound_ms(nbytes: float, nops: float) -> dict:
 
 
 def phase_world(args, cli):
+    from sailfish_tpu_torch.bench import build_transcriptome, simulate_batch
     from sailfish_tpu_torch.io.native import native_sais_available
 
     t0 = time.time()
@@ -582,28 +549,15 @@ def risk_reads(seqs, k, L, seed):
     return codes, np.array([len(m) for m in out], np.int32)
 
 
-def _padded(m):
-    """(n, read_len) codes -> (n, L) padded with code 4, L a multiple
-    of 8 (the FASTQ reader's batch layout)."""
-    L = (m.shape[1] + 7) // 8 * 8
-    codes = np.full((m.shape[0], L), 4, np.uint8)
-    codes[:, :m.shape[1]] = m
-    return codes
-
-
-def _fastq_batch(m):
-    from sailfish_tpu_torch.io.fastq import FastqBatch
-
-    return FastqBatch(_padded(m), np.full(m.shape[0], m.shape[1], np.int32))
-
-
 def _mate_reads(mates, with_n):
     """The mates of the fragments as one block of reads, as the backend
     lays it out (rows [m1; m2], or [m] for a single-end batch): (codes,
     lens, description).  `with_n` puts an N (code 4) at base 37 of every
     7th read: an N hashes as A in the probe key but ends a match in the
     LCP, so such lanes hold the kernel to both."""
-    codes = np.concatenate([_padded(m) for m in mates])
+    from sailfish_tpu_torch.bench import padded
+
+    codes = np.concatenate([padded(m) for m in mates])
     if with_n:
         codes[::7, 37] = 4
     lens = np.full(codes.shape[0], mates[0].shape[1], np.int32)
@@ -1276,6 +1230,7 @@ def phase_sharded_kernels(torch, index, tidx, shards, batch, sample_reads,
     collapse, counters) of the two backends in turns, each closed by a
     synchronize.  `batch` is the paired batch's (m1, m2).  Returns
     ({kernel: readings}, [run_modes' readings])."""
+    from sailfish_tpu_torch.bench import fastq_batch
     from sailfish_tpu_torch.config import QuantOpts
     from sailfish_tpu_torch.libformat import parse_library_format
     from sailfish_tpu_torch.map.pipeline import DeviceMapperBackend
@@ -1358,7 +1313,7 @@ def phase_sharded_kernels(torch, index, tidx, shards, batch, sample_reads,
     bes = {"mono": DeviceMapperBackend(index, opts, dev, tindex=tidx),
            "sharded": ShardedMapperBackend(None, opts, [dev],
                                            shards=shards)}
-    pf = bes["mono"].prefetch_pe(*(_fastq_batch(m) for m in batch))
+    pf = bes["mono"].prefetch_pe(*(fastq_batch(m) for m in batch))
     exp = parse_library_format("IU")
     for be in bes.values():  # a first call of each, untimed
         be.map_prefetched(pf, exp)
@@ -1856,6 +1811,7 @@ def _profile_step(torch, step, args, dev, top=6):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from sailfish_tpu_torch.bench import device_us
     from sailfish_tpu_torch.device import synchronize
 
     step(*args)
@@ -1868,10 +1824,10 @@ def _profile_step(torch, step, args, dev, top=6):
         wall = 1e3 * (time.perf_counter() - t0)
     evts = sorted((e for e in prof.key_averages()
                    if e.device_type == DeviceType.CUDA
-                   and _device_us(e) > 0), key=_device_us, reverse=True)
+                   and device_us(e) > 0), key=device_us, reverse=True)
     return {"wall_ms": wall,
-            "busy_ms": sum(_device_us(e) for e in evts) / 1e3,
-            "top": [(e.key[:70], _device_us(e) / 1e3, e.count)
+            "busy_ms": sum(device_us(e) for e in evts) / 1e3,
+            "top": [(e.key[:70], device_us(e) / 1e3, e.count)
                     for e in evts[:top]]}
 
 
@@ -2005,12 +1961,13 @@ def phase_dist(torch, idx_dir, mates, card):
     versions on the CPU.  The CPU rank starts after the card's ranks have
     ended, so that no step is timed while it takes the host's cores.
     Returns the scan kernels' launches by run."""
+    from sailfish_tpu_torch.bench import padded
     from sailfish_tpu_torch.parallel.dist import (
         check_step, same_on_every_rank, spawn)
 
     t_start = time.time()
     lens = np.full(len(mates[0]), mates[0].shape[1], np.int32)
-    batch = (_padded(mates[0]), lens, _padded(mates[1]), lens)
+    batch = (padded(mates[0]), lens, padded(mates[1]), lens)
     sample = tuple(x[:DIST_SAMPLE] for x in batch)
     try:
         w1 = spawn(dist_card_rank, 1, idx_dir, batch, sample,
@@ -2081,154 +2038,6 @@ def phase_dist(torch, idx_dir, mates, card):
              "dist_world2": sum(r["hash"]["launches"]["mmp_scan"]
                                 for r in w2)},
             {"dist_prefix_world1": pre["launches"]["mmp_scan_prefix"]})
-
-
-def phase_oracle(torch, index, tidx, mates, lib, caps):
-    """Eq classes of a sample from the device backend against the
-    refimpl backend.  `mates` is (m1, m2) for a paired library or (m,)
-    for a single-end one; `caps` the --hitCapacity values to run."""
-    from sailfish_tpu_torch.config import QuantOpts
-    from sailfish_tpu_torch.libformat import parse_library_format
-    from sailfish_tpu_torch.map.pipeline import (
-        DeviceMapperBackend,
-        RefMapperBackend,
-    )
-
-    exp = parse_library_format(lib)
-    bs = tuple(_fastq_batch(m) for m in mates)
-    n, rl = mates[0].shape
-    what = (f"{n} paired {rl} bp fragments" if len(bs) == 2
-            else f"{n} single-end {rl} bp reads")
-
-    def run(be):
-        return be.submit_pe(*bs, exp) if len(bs) == 2 \
-            else be.submit_se(*bs, exp)
-
-    # C = 64 is the main pass; C = 2 overflows every multi-isoform seed
-    # and sends those fragments through the escalation pass at 1024 —
-    # both must give the oracle's classes (its envelope is 1024 either way)
-    ports = {}
-    for cap in caps:
-        opts = QuantOpts(hit_capacity=cap, hit_capacity_max=1024)
-        port = DeviceMapperBackend(index, opts, tidx.device, tindex=tidx)
-        t0 = time.time()
-        tok = run(port)
-        escalated = int(tok[0]["scalars"][72])
-        br = port.finish_batch(tok)
-        ports[cap] = (br, escalated, time.time() - t0)
-    t0 = time.time()
-    oracle = RefMapperBackend(index, QuantOpts(hit_capacity=64,
-                                               hit_capacity_max=1024))
-    ref_br = oracle.finish_batch(run(oracle))
-    ref = dict(zip(ref_br.labels, ref_br.label_counts.tolist()))
-    t_ref = time.time() - t0
-    require(int(ref_br.mapped.sum()) > 0, f"oracle -l {lib}: nothing mapped")
-    for cap, (br, escalated, t_port) in ports.items():
-        got = dict(zip(br.labels, br.label_counts.tolist()))
-        require(got == ref, f"-l {lib} --hitCapacity {cap}: eq classes "
-                f"differ from the oracle: "
-                f"{len(set(got.items()) ^ set(ref.items()))} (label, count) "
-                "pairs")
-        require(np.array_equal(br.mapped, ref_br.mapped),
-                f"-l {lib} --hitCapacity {cap}: mapped flags differ")
-        say(f"oracle -l {lib}: {what} at --hitCapacity {cap} "
-            f"--hitCapacityMax 1024 ({escalated} escalated): {len(ref)} eq "
-            f"classes, {int(ref_br.mapped.sum())} mapped, identical to the "
-            f"refimpl backend (port {t_port:.2f}s, oracle {t_ref:.1f}s)")
-    if 2 in ports:
-        require(ports[2][1] > 0, "the C = 2 pass escalated no fragment")
-    return ref_br
-
-
-def _device_us(evt) -> float:
-    t = getattr(evt, "self_device_time_total", None)
-    return float(t if t is not None else evt.self_cuda_time_total)
-
-
-def phase_stages(torch, index, tidx, batches, card):
-    """Where a batch's time goes at the main path's batch size.  Pass 1
-    closes each stage with a synchronize; pass 2 runs the batches as
-    quant does (one-deep pipeline, no extra syncs) under torch.profiler,
-    which gives the device's busy time against the wall time."""
-    from sailfish_tpu_torch.config import QuantOpts
-    from sailfish_tpu_torch.libformat import parse_library_format
-    from sailfish_tpu_torch.map.pipeline import DeviceMapperBackend
-
-    exp = parse_library_format("IU")
-    dev = tidx.device
-    be = DeviceMapperBackend(index, QuantOpts(hit_capacity=64,
-                                              hit_capacity_max=1024),
-                             dev, tindex=tidx)
-    fq = [tuple(_fastq_batch(m) for m in b) for b in batches]
-
-    def sync():
-        torch.cuda.synchronize(dev)
-
-    names = ("prefetch_pe (host pack + copy)",
-             "map_prefetched (lanes, scan, post-pass, merge/collapse)",
-             "finish_batch_fast (host eq-class fold)")
-    ms = {n: [] for n in names}
-    acc = be.accumulator()
-    for b1, b2 in fq:
-        sync()
-        t = [time.perf_counter()]
-        pf = be.prefetch_pe(b1, b2)
-        sync()
-        t.append(time.perf_counter())
-        tok = be.map_prefetched(pf, exp)
-        sync()
-        t.append(time.perf_counter())
-        be.finish_batch_fast(tok, acc)
-        t.append(time.perf_counter())
-        for n, a, b in zip(names, t, t[1:]):
-            ms[n].append(1e3 * (b - a))
-    steady = slice(1, None) if len(fq) > 1 else slice(None)
-    for n in names:
-        say(f"stage {n}: median {np.median(ms[n][steady]):.3f} ms over "
-            f"batches 2..{len(fq)} (all: "
-            f"{', '.join(f'{x:.3f}' for x in ms[n])}) "
-            f"[{fq[0][0].count} fragments/batch, {card}]")
-
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    acc = be.accumulator()
-    sync()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        pending = None
-        for b1, b2 in fq:
-            tok = be.submit_pe(b1, b2, exp)
-            if pending is not None:
-                be.finish_batch_fast(pending, acc)
-            pending = tok
-        be.finish_batch_fast(pending, acc)
-        sync()
-        wall_us = 1e6 * (time.perf_counter() - t0)
-    # device-side events only (kernels, copies, fills): an operator's
-    # own entry repeats the time of the kernels it launched
-    evts = sorted((e for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA
-                   and _device_us(e) > 0), key=_device_us, reverse=True)
-    busy_us = sum(_device_us(e) for e in evts)
-    if not evts:
-        say("profile: not measured (torch.profiler recorded no device "
-            "time)")
-        return None
-    scan = [e for e in evts if "mmp_scan" in e.key]
-    scan_us = sum(_device_us(e) for e in scan)
-    say(f"profile: {len(fq)} batches pipelined as quant runs them: wall "
-        f"{wall_us / 1e3:.3f} ms under the profiler, device busy "
-        f"{busy_us / 1e3:.3f} ms ({100 * busy_us / wall_us:.1f}%, idle "
-        f"{100 - 100 * busy_us / wall_us:.1f}%); scan kernel "
-        f"{scan_us / 1e3:.3f} ms ({100 * scan_us / busy_us:.1f}% of busy) "
-        f"[{card}]")
-    for e in evts[:8]:
-        say(f"profile kernel: {_device_us(e) / 1e3:9.3f} ms  x{e.count:<5d} "
-            f"{e.key[:90]}")
-    # the scan kernel alone, as the profiler times it inside the pipeline
-    return scan_us / 1e3 / max(sum(e.count for e in scan), 1)
 
 
 def phase_end_to_end(torch, cli, wdir, idx_dir, tag, lib, mates, batch,
@@ -2333,10 +2142,11 @@ def phase_bias_oracle(torch, index, tidx, mates, ref_br, card):
         DeviceMapperBackend,
         RefMapperBackend,
     )
+    from sailfish_tpu_torch.bench import fastq_batch
     from sailfish_tpu_torch.stats.bias import BiasState
 
     exp = parse_library_format("IU")
-    b1, b2 = (_fastq_batch(m) for m in mates)
+    b1, b2 = (fastq_batch(m) for m in mates)
     for flags, cap in ((dict(bias_correct=True), 64),
                        (dict(gc_bias_correct=True), 64),
                        (dict(bias_correct=True), 2),
@@ -2379,12 +2189,13 @@ def phase_bias_stage(torch, index, tidx, batch, card):
     """What bias observation adds to a batch's device work
     (`map_prefetched`, closed by a synchronize) at the main path's
     batch size."""
+    from sailfish_tpu_torch.bench import fastq_batch
     from sailfish_tpu_torch.config import QuantOpts
     from sailfish_tpu_torch.libformat import parse_library_format
     from sailfish_tpu_torch.map.pipeline import DeviceMapperBackend
 
     exp = parse_library_format("IU")
-    b1, b2 = (_fastq_batch(m) for m in batch)
+    b1, b2 = (fastq_batch(m) for m in batch)
     ms = {}
     for name, flags in (("off", {}), ("--biasCorrect", {"bias_correct": True}),
                         ("--gcBiasCorrect", {"gc_bias_correct": True})):
@@ -2888,6 +2699,73 @@ def phase_launcher(torch, cli, wdir, idx_dir, batch, card):
         f"[{card}]")
 
 
+# the bench's metrics and the units it gives them, by world
+BENCH_METRICS = {
+    "uniform": {"reads_per_sec_per_chip": "reads/s"},
+    "gencode": {"gencode_index_load_s": "s",
+                "gencode_reads_per_sec": "frags/s",
+                "gencode_em_iters_per_sec": "iters/s",
+                "gencode_bootstraps_per_sec": "replicates/s",
+                "gencode_gibbs_samples_per_sec": "samples/s"},
+}
+
+
+def phase_bench(args, idx_dir, card):
+    """`python -m sailfish_tpu_torch.bench` as a user runs it, a process
+    for each world (its narrative streams to this script's stderr): the
+    uniform world of bench.py with its index cached in .smoke_cache/, and
+    the gene-family world on phase 3's k = 31 index at --bench-reads
+    fragments with 16 bootstraps, 16 Gibbs samples and the breakdown.
+    Every metric line must be there, finite, positive and from cuda, the
+    run's --check must have passed and the scan kernel must have been
+    launched in its timed loop.  Returns the launches by run."""
+    # --check at 512 fragments (the bench's default is 2,048): phase 5
+    # holds the gencode world's first 2,048 fragments, the same ones,
+    # against the same oracle, and the oracle takes about 30 ms a fragment
+    runs = {
+        "uniform": ["--cache", os.path.join(CACHE, "bench"), "--check",
+                    "512"],
+        "gencode": ["--index-dir", idx_dir, "--check", "512",
+                    "--txps", str(args.txps),
+                    "--bases", str(args.bases), "--batch", str(args.batch),
+                    "--reads", str(args.bench_reads), "--bootstraps", "16",
+                    "--gibbs", "16", "--breakdown"],
+    }
+    launches = {}
+    for world, argv in runs.items():
+        t0 = time.time()
+        proc = subprocess.run(
+            [sys.executable, "-m", "sailfish_tpu_torch.bench", "--world",
+             world, *argv], cwd=ROOT, stdout=subprocess.PIPE, text=True,
+            timeout=900)
+        wall = time.time() - t0
+        require(proc.returncode == 0,
+                f"bench --world {world} exited {proc.returncode}")
+        docs = [json.loads(ln) for ln in proc.stdout.splitlines()]
+        got = {d["metric"]: d["unit"] for d in docs}
+        require(got == BENCH_METRICS[world],
+                f"bench --world {world}: metric lines {got}")
+        for d in docs:
+            require(d["device"] == "cuda" and np.isfinite(d["value"])
+                    and d["value"] > 0, f"bench --world {world}: {d}")
+            say(f"bench --world {world}: {json.dumps(d)}")
+        rate, = (d for d in docs if "scan_launches" in d)
+        require(rate["checked"] > 0,
+                f"bench --world {world}: the check did not run")
+        require(rate["scan_launches"] > 0,
+                f"bench --world {world}: no scan kernel launch")
+        launches[f"bench_{world}"] = rate["scan_launches"]
+        ms = np.array(rate["batch_ms"])
+        say(f"bench --world {world}: {rate['metric']} {rate['value']:.1f} "
+            f"{rate['unit']}, {rate['reads']} fragments in "
+            f"{rate['seconds']:.3f}s, batch ms median {np.median(ms):.3f} "
+            f"(quartiles {np.percentile(ms, 25):.3f}-"
+            f"{np.percentile(ms, 75):.3f}, {len(ms)} batches), scan "
+            f"launches {rate['scan_launches']}, --check {rate['checked']} "
+            f"fragments passed; process wall {wall:.1f}s [{card}]")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--txps", type=int, default=200_000)
@@ -2896,6 +2774,9 @@ def main(argv=None) -> int:
     ap.add_argument("--batch", type=int, default=65536)
     ap.add_argument("--kernel-frags", type=int, default=8192)
     ap.add_argument("--oracle-frags", type=int, default=2048)
+    ap.add_argument("--bench-reads", type=int, default=10_000_000,
+                    help="fragments of the bench's gene-family run "
+                    "(phase 16)")
     ap.add_argument("--bias-txps", type=int, default=2000,
                     help="transcripts of the card-against-CPU run of "
                     "update_effective_lengths")
@@ -2917,6 +2798,11 @@ def main(argv=None) -> int:
     sys.path.insert(0, ROOT)
     try:
         from sailfish_tpu_torch import cli
+        from sailfish_tpu_torch.bench import (
+            CheckFailure,
+            oracle_check,
+            stage_breakdown,
+        )
         from sailfish_tpu_torch.index.builder import load_index, save_index
         from sailfish_tpu_torch.index.device import TorchIndex
         from sailfish_tpu_torch.parallel.shardidx import TorchShards
@@ -3081,12 +2967,12 @@ def main(argv=None) -> int:
             say(smi)
             return 0
         sample = tuple(m[:of] for m in batches[0])
-        ref_br = phase_oracle(torch, index, tidx, sample, "IU", (64, 2))
-        phase_oracle(torch, index, tidx, (batches[0][0][:of],), "U", (64,))
-        phase_oracle(torch, index, tidx,
-                     tuple(m[:of // 2] for m in long_batch), "IU", (64,))
+        ref_br = oracle_check(index, tidx, sample, "IU", (64, 2), out=say)
+        oracle_check(index, tidx, (batches[0][0][:of],), "U", (64,), out=say)
+        oracle_check(index, tidx, tuple(m[:of // 2] for m in long_batch),
+                     "IU", (64,), out=say)
         note("oracle done")
-        profiled_ms = phase_stages(torch, index, tidx, batches, smi)
+        profiled_ms = stage_breakdown(index, tidx, batches, smi, out=say)
         note("stages done")
         phase_bias_oracle(torch, index, tidx, sample, ref_br, smi)
         phase_bias_stage(torch, index, tidx, batches[-1], smi)
@@ -3140,10 +3026,13 @@ def main(argv=None) -> int:
         dist_launches, dist_prefix_launches = phase_dist(
             torch, idx_dir, batches[0], smi)
         note("dist done")
+        torch.cuda.empty_cache()
+        bench_launches = phase_bench(args, idx_dir, smi)
+        note("bench done")
         require("jax" not in sys.modules
                 and "sailfish_tpu" not in sys.modules,
                 "jax or the JAX package was imported")
-    except SmokeFailure as e:
+    except (SmokeFailure, CheckFailure) as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     # ms, plain_ms and bound_ms are those of one launch of the paired
@@ -3166,7 +3055,8 @@ def main(argv=None) -> int:
         # two libraries, checkpoints), set to 0 before each
         "launches_by_run": {"pe100": launches, "se100": launches_se,
                             f"pe{LONG_READ_LEN}": launches_long,
-                            **more_launches, **dist_launches},
+                            **more_launches, **dist_launches,
+                            **bench_launches},
         "shapes": kv,
     })
     # the 64-bit instantiation: ms, plain_ms and bound_ms of the paired
