@@ -152,7 +152,26 @@ result line):
      the stage breakdown); every metric line present, finite and from
      cuda, each run's `--check` (512 fragments against the reference
      mapper) passed, the scan kernel launched in each timed loop
- 17. the kernel table line, the nvidia-smi line, then the result line
+ 17. capacity: `python -m sailfish_tpu_torch.capacity_envelope --mode
+     repeat` through its parser and `run`, the launch counts reset before
+     and read after each run: at the tool's defaults (2,048 fragments,
+     --hitCapacityMax 256 and 2048) and at one production batch
+     (65,536 fragments; caps 256, 1024 and 2048), each at
+     --hitCapacity 64 on the repeat world (a 300 bp element in about
+     400 of 4,000 transcripts).  Gates: fragments escalated at 256 and
+     an element interval wider than 256; one main-pass launch a cap and
+     one a 1,024-fragment escalation chunk; mapped sets that grow with
+     the cap; each cap's wide pass run again through its backend's own
+     escalation chunks on the fragments its main pass overflowed, whose
+     labels and mapped flags equal the next cap's wherever it did not
+     overflow and give the tool's mapped flags; on the first 512
+     fragments the eq classes and mapped
+     flags of the device backend equal the refimpl backend's at each
+     cap (the bench's `oracle_check`); the scan kernel on the first
+     escalation chunk at C = 256 and 2048 against its plain version, as
+     in phase 4.  Readings: the drop count at the CLI's 1024, the ms and
+     device memory of an escalation chunk at each cap
+ 18. the kernel table line, the nvidia-smi line, then the result line
 
 `--kernel-only` runs phases 1, 3 and 4 (toolchain, world, kernel vs
 plain: both widths, the prefix route, the sharded modes) and prints no
@@ -2766,6 +2785,159 @@ def phase_bench(args, idx_dir, card):
     return launches
 
 
+# ---------------------------------------------------------------- capacity
+def wide_pass(torch, world, run):
+    """One cap's escalation pass again, through its backend's own chunks
+    (`_esc_chunks` on the fragments that overflowed its main pass), each
+    chunk synchronized and its device memory read: per fragment the
+    mapped flag, the overflow flag and the label (a tuple, () when
+    unmapped), and per chunk (ms, peak MiB above the memory held before
+    it)."""
+    from sailfish_tpu_torch.libformat import parse_library_format
+
+    steps = run.backend._esc_chunks(
+        (world.b1, world.b2, parse_library_format("IU")), run.overflow)
+    mapped, over, labels, chunks = [], [], [], []
+    while True:
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        step = next(steps, None)
+        if step is None:
+            return np.concatenate(mapped), np.concatenate(over), labels, chunks
+        ci, _, (res, _, _) = step
+        m = res["mapped"][:len(ci)].cpu().numpy()
+        o = res["overflow"][:len(ci)].cpu().numpy()
+        lab = res["label"][:len(ci)].cpu().numpy()
+        chunks.append((1e3 * (time.perf_counter() - t0),
+                       (torch.cuda.max_memory_allocated() - held) / 2**20))
+        mapped.append(m)
+        over.append(o)
+        labels += [tuple(r[r >= 0]) if f else () for r, f in zip(lab, m)]
+        del res, step
+
+
+def phase_capacity(card, copy_rate):
+    """The capacity-envelope tool's repeat mode on the card and its
+    gates (phase 17 of the docstring).  Returns (the scan kernel's
+    launches by run, the kernel-vs-plain readings of the escalation
+    chunk)."""
+    import torch
+
+    from sailfish_tpu_torch import capacity_envelope as ce
+    from sailfish_tpu_torch.bench import oracle_check
+    from sailfish_tpu_torch.map.pipeline import DeviceMapperBackend
+    from sailfish_tpu_torch.map.scan import mmp_scan_cuda
+
+    frags = 65536        # one production batch
+    oracle_frags = 512   # its sample held against the reference mapper
+    t_start = time.time()
+    rows = DeviceMapperBackend._ESC_ROWS
+    launches, kv = {}, {}
+    for argv in ([], ["--frags", str(frags), "--caps", "256,1024,2048"]):
+        what = f"capacity_envelope --mode repeat {' '.join(argv)}".strip()
+        t0 = time.time()
+        mmp_scan_cuda.launches = 0
+        doc, world, runs = ce.run(ce.parse_args(["--mode", "repeat",
+                                                 *argv]))
+        n_launch = mmp_scan_cuda.launches
+        wall = time.time() - t0
+        caps = sorted(runs)
+        top, B = caps[-1], doc["frags"]
+        launches[f"capacity_repeat_{B}"] = n_launch
+        require(doc["device"] == "cuda", f"{what}: ran on {doc['device']}")
+        require(all(f"mapped_cap{c}" in doc for c in caps)
+                and all(f"dropped_at_{c}_kept_at_{top}" in doc
+                        for c in caps[:-1]), f"{what}: keys missing")
+        esc = runs[caps[0]].escalated
+        require(esc > 0 and all(r.escalated == esc for r in runs.values()),
+                f"{what}: escalated {[r.escalated for r in runs.values()]}"
+                " (the main pass is the same at every cap, and must "
+                "escalate)")
+        require(doc["element_interval"] > 256, f"{what}: the element's "
+                f"interval is {doc['element_interval']}, not above 256")
+        want = len(caps) * (1 + -(-esc // rows))
+        require(n_launch == want, f"{what}: {n_launch} scan launches, not "
+                f"the {want} of a main pass and {-(-esc // rows)} "
+                "escalation chunks a cap")
+        # the fragments the main pass overflowed, and the wide pass on
+        # them at each cap, fragment by fragment
+        idx = runs[caps[0]].overflow
+        require(len(idx) == esc and all(np.array_equal(r.overflow, idx)
+                                        for r in runs.values()),
+                f"{what}: the overflowed fragments differ from cap to cap "
+                f"or from the {esc} escalated")
+        wide = {c: wide_pass(torch, world, runs[c]) for c in caps}
+        tidx = runs[caps[0]].backend.tindex
+        rest = np.ones(B, bool)
+        rest[idx] = False
+        for a, b in zip(caps, caps[1:]):
+            ma, mb = runs[a].result.mapped, runs[b].result.mapped
+            require(not (ma & ~mb).any(), f"{what}: "
+                    f"{int((ma & ~mb).sum())} fragments mapped at cap {a} "
+                    f"and dropped at {b}")
+            require(np.array_equal(ma[rest], mb[rest]),
+                    f"{what}: caps {a} and {b} differ on fragments that "
+                    "did not escalate")
+            (wma, woa, wla, _), (wmb, wob, wlb, _) = wide[a], wide[b]
+            keep = np.nonzero(~woa)[0]
+            require(not (wob & ~woa).any(), f"{what}: a wide pass that "
+                    f"overflows at {b} and not at {a}")
+            require(np.array_equal(wma[keep], wmb[keep])
+                    and all(wla[i] == wlb[i] for i in keep),
+                    f"{what}: labels at caps {a} and {b} differ where the "
+                    f"cap-{a} wide pass did not overflow")
+        for c in caps:
+            wm, wo, _, chunks = wide[c]
+            require(np.array_equal(wm, runs[c].result.mapped[idx]),
+                    f"{what}: cap {c}: the tool's mapped flags differ from "
+                    "the wide pass run again")
+            require(not (wm & wo).any(), f"{what}: cap {c}: a fragment "
+                    "overflowed and mapped")
+            say(f"{what}: cap {c}: {len(idx)} escalated, wide pass "
+                f"overflowed {int(wo.sum())}, mapped {int(wm.sum())}; "
+                f"{len(chunks)} chunks of <= {rows} fragments, ms "
+                f"{', '.join(f'{x[0]:.3f}' for x in chunks)}, device memory "
+                f"above the held {', '.join(f'{x[1]:.1f}' for x in chunks)}"
+                f" MiB (synchronized, submit + pull of mapped, overflow, "
+                f"label) [{card}]")
+        for c in caps[:-1]:
+            say(f"{what}: dropped at --hitCapacityMax {c}, kept at {top}: "
+                f"{doc[f'dropped_at_{c}_kept_at_{top}']} of {B} "
+                f"({100 * doc[f'dropped_at_{c}_kept_at_{top}_frac']:.4f}%)"
+                + (" (the JAX package's round-3 TPU run: 0 at 1024)"
+                   if c == 1024 else ""))
+        say(f"{what}: gates passed; {n_launch} scan launches, wall "
+            f"{wall:.1f}s [{card}]")
+        if argv:
+            # the eq classes of a sample against the oracle at each cap,
+            # and the tool's mapped flags against the oracle's
+            n = min(oracle_frags, B)
+            require((idx < n).any(), f"{what}: no fragment of the first {n}"
+                    " escalated")
+            sample = (world.b1.codes[:n, :100], world.b2.codes[:n, :100])
+            for c in caps:
+                ref = oracle_check(world.index, tidx, sample, "IU", (64,),
+                                   cap_max=c, out=say)
+                require(np.array_equal(ref.mapped,
+                                       runs[c].result.mapped[:n]),
+                        f"{what}: cap {c}: the tool's mapped flags differ "
+                        "from the oracle's on the sample")
+            # the scan kernel on the first escalation chunk, at the wide
+            # pass's capacities
+            ci = idx[:rows]
+            kv = phase_kernel_vs_plain(
+                torch, tidx, "repeat_escalation",
+                _mate_reads((world.b1.codes[ci, :100],
+                             world.b2.codes[ci, :100]), False),
+                [{"cand_cap": 256}, {"cand_cap": 2048}], card, copy_rate)
+        del tidx, world, runs, wide
+        torch.cuda.empty_cache()
+    say(f"capacity: phase took {time.time() - t_start:.1f}s")
+    return launches, kv
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--txps", type=int, default=200_000)
@@ -3029,6 +3201,9 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         bench_launches = phase_bench(args, idx_dir, smi)
         note("bench done")
+        capacity_launches, kv_capacity = phase_capacity(smi, copy_rate)
+        kv.update(kv_capacity)
+        note("capacity done")
         require("jax" not in sys.modules
                 and "sailfish_tpu" not in sys.modules,
                 "jax or the JAX package was imported")
@@ -3056,7 +3231,7 @@ def main(argv=None) -> int:
         "launches_by_run": {"pe100": launches, "se100": launches_se,
                             f"pe{LONG_READ_LEN}": launches_long,
                             **more_launches, **dist_launches,
-                            **bench_launches},
+                            **bench_launches, **capacity_launches},
         "shapes": kv,
     })
     # the 64-bit instantiation: ms, plain_ms and bound_ms of the paired

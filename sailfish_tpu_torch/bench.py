@@ -696,6 +696,20 @@ def run_gencode(b: Bench):
                seconds=dt)
 
 
+def add_world_flags(ap):
+    """The flags that size a world and say where its index is: --txps,
+    --bases, --index-dir and --cache (the gencode world's in
+    capacity_envelope.py too).  Unset sizes are None."""
+    ap.add_argument("--txps", type=int, help="transcripts (20,000 uniform; "
+                    "200,000 at most gencode)")
+    ap.add_argument("--bases", type=float,
+                    help="gencode: transcriptome bases at most (150e6)")
+    ap.add_argument("--index-dir",
+                    help="gencode: an existing k = 31 index of this world")
+    ap.add_argument("--cache", default=DEFAULT_CACHE,
+                    help="directory of the cached indexes ('' for none)")
+
+
 def parse_args(argv=None):
     ap = argparse.ArgumentParser(
         prog="sailfish_tpu_torch.bench",
@@ -708,8 +722,7 @@ def parse_args(argv=None):
     ap.add_argument("--seed", type=int,
                     help="numpy seed of the world and reads (uniform, 0) "
                     "or of the reads (gencode, 11; its world is seed 7)")
-    ap.add_argument("--txps", type=int, help="transcripts (20,000 uniform; "
-                    "200,000 at most gencode)")
+    add_world_flags(ap)
     ap.add_argument("--txp-len", type=int,
                     help="uniform: base transcript length (1,000)")
     ap.add_argument("--read-len", type=int, help="uniform: mate length (100)")
@@ -717,12 +730,8 @@ def parse_args(argv=None):
                     help="uniform: substitution rate (0.005)")
     ap.add_argument("--batches", type=int,
                     help="uniform: pre-simulated batches (12)")
-    ap.add_argument("--bases", type=float,
-                    help="gencode: transcriptome bases at most (150e6)")
     ap.add_argument("--reads", type=int,
                     help="gencode: fragments mapped, in whole batches (10M)")
-    ap.add_argument("--index-dir",
-                    help="gencode: an existing k = 31 index of this world")
     ap.add_argument("--bootstraps", type=int,
                     help="gencode: bootstrap replicates (0: none)")
     ap.add_argument("--gibbs", type=int,
@@ -731,8 +740,6 @@ def parse_args(argv=None):
                     help="fragments a batch")
     ap.add_argument("--hitCapacity", type=int, default=64)
     ap.add_argument("--hitCapacityMax", type=int, default=1024)
-    ap.add_argument("--cache", default=DEFAULT_CACHE,
-                    help="directory of the cached indexes ('' for none)")
     ap.add_argument("--check", type=int, default=2048,
                     help="fragments of the first batch held against the "
                     "reference mapper before any metric (0: none)")

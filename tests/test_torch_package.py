@@ -74,6 +74,7 @@ def test_kernel_build_is_not_triggered_by_import():
              " sailfish_tpu_torch.parallel.shardidx,"
              " sailfish_tpu_torch.parallel.dist,"
              " sailfish_tpu_torch.bench,"
+             " sailfish_tpu_torch.capacity_envelope,"
              " sailfish_tpu_torch.io.native as n, sailfish_tpu_torch._ext "
              "as e; print(e._LOADED is None and not n._TRIED)")
     proc = subprocess.run([sys.executable, "-c", probe], cwd=ROOT,
