@@ -18,7 +18,8 @@ result line):
      tools/bench_gencode.py) written as FASTA and indexed with
      `python -m sailfish_tpu_torch.cli index -k 31` into .smoke_cache/
      (reused when present; the native SA-IS is required at this scale),
-     and again as 4 shards with `index -k 31 --indexShards 4`;
+     and at the same time as 4 shards with `index -k 31 --indexShards 4`
+     in a process of its own;
      2 batches of 65,536 paired 100 bp fragments with 0.5% substitutions
      (seed 11) and 1 batch of 65,536 paired 152 bp fragments (seed 13)
      written as FASTQ
@@ -147,8 +148,8 @@ result line):
      world, as a user runs it: `--world uniform` (bench.py's world of
      20,000 random transcripts, its index cached in .smoke_cache/, 2
      warm-up and 12 timed batches of 65,536 paired fragments) and
-     `--world gencode` on phase 3's k = 31 index (--bench-reads 10M
-     fragments, 152 timed batches, EM, 16 bootstraps, 16 Gibbs samples,
+     `--world gencode` on phase 3's k = 31 index (--bench-reads 2M
+     fragments, 30 timed batches, EM, 16 bootstraps, 16 Gibbs samples,
      the stage breakdown); every metric line present, finite and from
      cuda, each run's `--check` (512 fragments against the reference
      mapper) passed, the scan kernel launched in each timed loop
@@ -171,7 +172,22 @@ result line):
      escalation chunk at C = 256 and 2048 against its plain version, as
      in phase 4.  Readings: the drop count at the CLI's 1024, the ms and
      device memory of an escalation chunk at each cap
- 18. the kernel table line, the nvidia-smi line, then the result line
+ 18. shrink (`--scanShrink`, the XLA kernel's compacted scan through
+     the scan's step stamps and the cut pass of map/shrink.py): the
+     stamped launch against its plain version on phase 4's sample (C =
+     64 under both skip rules and C = 2, where lanes overflow; the 64-bit
+     index at C = 64; the k = 15 prefix route at C = 64 and 2) and on
+     the paired batch, all five raw
+     outputs bit for bit (stamps written over a fill no step reaches),
+     its other outputs equal to the stampless launch's, timed in turns
+     with it; the cut pass on the paired batch's stamps on the card
+     against the CPU; `quant -l IU --scanShrink 2 --batchSize 2048` on
+     the first 2,048 fragments on cuda against `--device cpu` (eq
+     classes identical, quant.sf to its printed digits); then phase 7's
+     paired run (two production batches of 65,536 fragments) at
+     --scanShrink 2 through the CLI, every launch stamped; its mapped
+     share, classes and each batch's ms beside phase 7's at 1
+ 19. the kernel table line, the nvidia-smi line, then the result line
 
 `--kernel-only` runs phases 1, 3 and 4 (toolchain, world, kernel vs
 plain: both widths, the prefix route, the sharded modes) and prints no
@@ -208,7 +224,12 @@ TPU_KERNEL = "sailfish_tpu/map/pallas_kernel.py:133"
 # what the prefix route and the sharded modes compute, in the XLA kernel
 PREFIX_SEED = "sailfish_tpu/map/kernels.py:195"
 LOCKSTEP_SCAN = "sailfish_tpu/map/kernels.py:244"
+# the XLA kernel's compacted scan (--scanShrink), which the stamps serve
+SHRINK_SCAN = "sailfish_tpu/map/kernels.py:341"
 UBENCH_SRC = "sailfish_tpu_torch/csrc/ubench.cu"
+# the reference mapper's processes in the oracle gates: the host's cores,
+# idle while it runs
+ORACLE_WORKERS = os.cpu_count() or 1
 UBENCH_TPU_KERNEL = "tools/ubench_pallas.py:37"
 PREFIX_K = 15          # the k of the world's index without a k-mer table
 SHARDS = 4             # shards of the world's sharded index
@@ -485,11 +506,29 @@ def phase_world(args, cli):
     native = native_sais_available()
     t0 = time.time()
     fresh = not os.path.exists(os.path.join(idx_dir, "header.json"))
-    require(cli.main(["index", "-t", fasta, "-o", idx_dir, "-k", "31"]) == 0,
-            "index build failed")
-    say(f"index: {'built' if fresh else 'reused'} in "
-        f"{time.time() - t0:.1f}s | suffix array: "
-        f"{'native SA-IS' if native else 'numpy prefix doubling'}")
+    # the sharded index (phases 4 and 14) builds beside this one, through
+    # `index --indexShards` in a process of its own
+    idx4_dir = os.path.join(wdir, f"index_{SHARDS}shards")
+    fresh4 = not os.path.exists(os.path.join(idx4_dir, "header.json"))
+    sharded = subprocess.Popen(
+        [sys.executable, "-m", "sailfish_tpu_torch.cli", "index", "-t",
+         fasta, "-o", idx4_dir, "-k", "31", "--indexShards", str(SHARDS)],
+        cwd=ROOT)
+    try:
+        require(cli.main(["index", "-t", fasta, "-o", idx_dir, "-k",
+                          "31"]) == 0, "index build failed")
+        say(f"index: {'built' if fresh else 'reused'} in "
+            f"{time.time() - t0:.1f}s | suffix array: "
+            f"{'native SA-IS' if native else 'numpy prefix doubling'}")
+    except BaseException:
+        sharded.kill()
+        raise
+    finally:
+        rc4 = sharded.wait()
+    require(rc4 == 0, f"sharded index build exited {rc4}")
+    say(f"sharded index: {SHARDS} shards, "
+        f"{'built' if fresh4 else 'reused'} through `index --indexShards` "
+        f"beside it, both in {time.time() - t0:.1f}s")
     require(native or lens.sum() < 50e6, "the native SA-IS did not build; "
             "the numpy fallback is too slow for a world of this size")
     rng = np.random.default_rng(11)
@@ -507,7 +546,7 @@ def phase_world(args, cli):
         mask = r304.random(m.shape) < ERR
         m[mask] = (m[mask] + r304.integers(1, 4, mask.sum())) % 4
     xl[1] = (3 - xl[1][:, ::-1]).astype(np.uint8)
-    return idx_dir, wdir, batches, long_batch, tuple(xl), seqs
+    return idx_dir, idx4_dir, wdir, batches, long_batch, tuple(xl), seqs
 
 
 def risk_reads(seqs, k, L, seed):
@@ -635,7 +674,7 @@ def chunk_count(torch, launch, work, name):
             f"({got / max(need, 1):.4f}x)")
 
 
-def scan_bound(lanes, meta, work, C, M, pos_bytes=4):
+def scan_bound(lanes, meta, work, C, M, pos_bytes=4, extra_bytes=0):
     """Least time for one scan call on these inputs.  Bytes that must
     move: per lane L code bytes, 4 L packed-word bytes, its length and
     its 16 bytes of meta; the seeds' reads (`seed_bytes`); a suffix-array
@@ -644,14 +683,16 @@ def scan_bound(lanes, meta, work, C, M, pos_bytes=4):
     entry (4 bytes) and `txp_offsets` entry (`pos_bytes`); on a 64-bit
     index with a k-mer table 4 bytes of the table's side array per seed
     (a k-mer found with cnt <= C); and the M * C slots of 9 bytes per
-    lane, each written once.  Operations: about 40 per probed position,
-    10 per search step, 10 per candidate, 6 per compared byte."""
+    lane, each written once, and `extra_bytes` written beside them (the
+    step stamps).  Operations: about 40 per probed position, 10 per
+    search step, 10 per candidate, 6 per compared byte."""
     n, L = lanes["codes"].shape
     steps = int(meta[:, 3].sum())
     side = (pos_bytes - 4) * work["seeds"] if "buckets" in work else 0
     nbytes = (n * (5 * L + 4 + 16) + seed_bytes(work, pos_bytes)
               + pos_bytes * work["candidates"] + work["text_bytes"]
-              + (4 + pos_bytes) * work["stored"] + side + n * M * C * 9)
+              + (4 + pos_bytes) * work["stored"] + side + n * M * C * 9
+              + extra_bytes)
     nops = (40 * steps + 10 * work.get("search_steps", 0)
             + 10 * work["candidates"] + 6 * work["text_bytes"])
     return bound_ms(nbytes, nops)
@@ -937,7 +978,7 @@ def phase_shifted(torch, index, tidx64, reads, card):
         sa3.data_ptr() - 8 * T, ht3.data_ptr(), hi3.data_ptr(),
         tidx64.txp_of_pos.data_ptr() - 4 * T, offs3.data_ptr(), tidx64.k,
         64, 4, L, tidx64.ht_bits, tidx64.ht_probes, 0,
-        *(o.data_ptr() for o in outs), None, dev.index,
+        *(o.data_ptr() for o in outs), None, None, dev.index,
         torch.cuda.current_stream(dev).cuda_stream)
     kl.check(err, "the 64-bit scan with moved base pointers")
     torch.cuda.synchronize()
@@ -1647,6 +1688,7 @@ def _launch_counts(reset=False):
 
     counts = {"mmp_scan": (mmp_scan_cuda, "launches"),
               "mmp_scan_prefix": (mmp_scan_cuda, "prefix_launches"),
+              "mmp_scan_stamped": (mmp_scan_cuda, "stamped_launches"),
               "mmp_facts": (facts_cuda, "launches"),
               "mmp_replay": (replay_cuda, "launches"),
               "mmp_replay_shards": (replay_shards_cuda, "launches"),
@@ -2919,7 +2961,7 @@ def phase_capacity(card, copy_rate):
             sample = (world.b1.codes[:n, :100], world.b2.codes[:n, :100])
             for c in caps:
                 ref = oracle_check(world.index, tidx, sample, "IU", (64,),
-                                   cap_max=c, out=say)
+                                   cap_max=c, out=say, workers=ORACLE_WORKERS)
                 require(np.array_equal(ref.mapped,
                                        runs[c].result.mapped[:n]),
                         f"{what}: cap {c}: the tool's mapped flags differ "
@@ -2937,6 +2979,233 @@ def phase_capacity(card, copy_rate):
     say(f"capacity: phase took {time.time() - t_start:.1f}s")
     return launches, kv
 
+STAMP_FILL = 0x5A5A5A5A    # a step that no read of these reaches
+
+
+def stamped_vs_plain(torch, tidx, tag, reads, cases, card, copy_rate,
+                     time_plain=False):
+    """The scan's stamped launch (`stamps=True`) against its plain
+    version on the oriented lanes of `reads`, as phase 4 takes them: all
+    five raw outputs bit for bit, written over 0xFF buffers and stamps
+    filled with STAMP_FILL; its first four outputs equal to the stampless
+    launch's; timed in turns with it (stampless, stamped, stamped,
+    stampless), and the plain version timed with `time_plain` (the row of
+    the kernel table).  Returns ({name: readings}, the last case's lanes
+    and stamped outputs)."""
+    from sailfish_tpu_torch.map.encode import make_oriented_lanes
+    from sailfish_tpu_torch.map.scan import mmp_scan_cuda as scan
+    from sailfish_tpu_torch.map.scan import mmp_scan_reference
+
+    dev = tidx.device
+    codes, lens, what = reads
+    L = codes.shape[1]
+    lanes = make_oriented_lanes(torch.from_numpy(codes).to(dev),
+                                torch.from_numpy(lens).to(dev))
+    n_lanes = lanes["codes"].shape[0]
+    out, k = {}, None
+    for case in cases:
+        C = case["cand_cap"]
+        kw = {"max_mmps": 4, "max_steps": L, "skip_jump": False, **case}
+        name = f"{tag}_L{L}_C{C}" + ("_jump" if kw["skip_jump"] else "")
+        del k
+        bufs = _ff_outputs(torch, n_lanes, C, dev) + (
+            torch.full((n_lanes, 5), STAMP_FILL, dtype=torch.int32,
+                       device=dev),)
+        k = scan(lanes, tidx, stamps=True, out=bufs, **kw)
+        work = {}
+        p = mmp_scan_reference(lanes, tidx, stamps=True, work=work, **kw)
+        bare = scan(lanes, tidx, **kw)
+        torch.cuda.synchronize()
+        err = _same_raw(torch, name, k, p, PLAIN,
+                        outs=("txp", "pos", "valid", "meta", "stamps"))
+        _same_raw(torch, name, k[:4], bare, "the stampless launch's")
+        del p, bare
+        t = {False: [], True: []}
+        for st in (False, True, True, False):
+            t[st].append(_time_ms(
+                torch, lambda: scan(lanes, tidx, stamps=st, **kw), 5))
+        ms = {st: sum(v) / len(v) for st, v in t.items()}
+        plain_ms = _time_ms(torch, lambda: mmp_scan_reference(
+            lanes, tidx, stamps=True, **kw), 1) if time_plain else None
+        stamp_bytes = n_lanes * 5 * 4
+        bound = scan_bound(lanes, k[3], work, C, 4,
+                           pos_bytes=tidx.pos_bits // 8,
+                           extra_bytes=stamp_bytes)
+        stamps = k[4].long()
+        if C == 2:
+            # the overflow stamp of a lane whose first overflow lies
+            # inside a probe window, not at its end
+            require(bool((stamps[:, 4] >= 0).any()),
+                    f"{name}: no overflow was stamped")
+        say(f"stamped kernel vs plain {name}: {n_lanes} lanes ({what} x "
+            f"fwd/rc), all five raw outputs equal written over 0xFF "
+            f"(stamps over {STAMP_FILL:#x}), the first four equal to the "
+            f"stampless launch's; MMPs stamped "
+            f"{int((stamps[:, :4] >= 0).sum())}, overflows stamped "
+            f"{int((stamps[:, 4] >= 0).sum())}, latest stamp "
+            f"{int(stamps.max())}; stamped {ms[True]:.3f} ms ({t[True][0]:.3f}"
+            f", {t[True][1]:.3f}), stampless {ms[False]:.3f} ms "
+            f"({t[False][0]:.3f}, {t[False][1]:.3f}), stamped / stampless "
+            f"{ms[True] / ms[False]:.3f}; "
+            + (f"plain {plain_ms:.3f} ms; " if time_plain else "")
+            + f"bound "
+            f"{bound['bound_ms']:.4f} ms by {bound['bound_by']} with "
+            f"{stamp_bytes} bytes of stamps, stamped / bound "
+            f"{ms[True] / bound['bound_ms']:.2f} [{card}]")
+        out[name] = {"lanes": n_lanes, "ms": ms[True],
+                     "ms_stampless": ms[False], "plain_ms": plain_ms,
+                     "max_abs_err": err, **bound}
+    return out, lanes, k
+
+
+def cut_pass_check(torch, outs, width0, L, card):
+    """The cut pass (map/shrink.py) at --scanShrink 2 over a first width
+    of `width0` lanes, on the card against the CPU for the same stamped
+    outputs: every lane's steps and the four cut outputs equal.  Returns
+    the card's ms (CUDA events, 3 calls) and the lanes cut."""
+    from sailfish_tpu_torch.map.shrink import apply_cut, cut_steps
+
+    def cut(txp, pos, vld, meta, stamps):
+        end = cut_steps(stamps, meta, width0=width0, shrink=2, max_steps=L)
+        return (end, *apply_cut(txp, pos, vld, meta, stamps, end, C=64,
+                                M=4))
+
+    got = cut(*outs)
+    want = cut(*(x.cpu() for x in outs))
+    for what, a, b in zip(("steps", "txp", "pos", "valid", "meta"), got,
+                          want):
+        require(torch.equal(a.cpu(), b), f"cut pass: `{what}` on the card "
+                "differs from the CPU's")
+    ms = _time_ms(torch, lambda: cut(*outs), 3)
+    n_cut = int((got[0] < outs[3][:, 3]).sum())
+    lost = int((outs[3][:, 0] - got[4][:, 0]).sum())
+    say(f"cut pass at --scanShrink 2, first width {width0}: "
+        f"{outs[0].shape[0]} lanes, {n_cut} cut, {lost} MMPs dropped, equal "
+        f"to the CPU's; {ms:.3f} ms on the card [{card}]")
+    return ms, n_cut
+
+
+def phase_shrink(torch, cli, wdir, idx_dir, idx15_dir, batches, kf, card,
+                 copy_rate):
+    """--scanShrink (phase 18 of the docstring).  Returns (the stamped
+    launch's kernel row fields, launches by run)."""
+    from sailfish_tpu_torch.index.builder import load_index
+    from sailfish_tpu_torch.index.device import TorchIndex
+
+    t_start = time.time()
+    index = load_index(idx_dir)
+    tidx = TorchIndex.from_quasi_index(index, "cuda")
+    sample = _mate_reads(tuple(m[:kf] for m in batches[0]), True)
+    kv, _, _ = stamped_vs_plain(
+        torch, tidx, "sample", sample,
+        [{"cand_cap": 64}, {"cand_cap": 64, "skip_jump": True},
+         {"cand_cap": 2}], card, copy_rate)
+    paired = _mate_reads(batches[0], False)
+    kvp, lanes, outs = stamped_vs_plain(torch, tidx, "paired_batch", paired,
+                                        [{"cand_cap": 64}], card, copy_rate,
+                                        time_plain=True)
+    kv.update(kvp)
+    main = next(iter(kvp.values()))
+    L = lanes["codes"].shape[1]
+    cut_ms, n_cut = cut_pass_check(torch, outs[:5], lanes["codes"].shape[0],
+                                   L, card)
+    require(n_cut > 0, "cut pass: no lane of the paired batch was cut")
+    del tidx, lanes, outs
+    torch.cuda.empty_cache()
+    tidx64 = TorchIndex.from_quasi_index(big_index(index), "cuda")
+    kv.update(stamped_vs_plain(torch, tidx64, "sample64", sample,
+                               [{"cand_cap": 64}], card, copy_rate)[0])
+    del tidx64, index
+    torch.cuda.empty_cache()
+    tidx15 = TorchIndex.from_quasi_index(load_index(idx15_dir), "cuda")
+    kv.update(stamped_vs_plain(torch, tidx15, "prefix_sample", sample,
+                               [{"cand_cap": 64}, {"cand_cap": 2}], card,
+                               copy_rate)[0])
+    del tidx15
+    torch.cuda.empty_cache()
+    note("stamped kernel done")
+
+    # the CLI on cuda against the CPU, on the first 2,048 fragments
+    n = 2048
+    paths = [os.path.join(wdir, f"reads_shrink_{i}.fq") for i in (1, 2)]
+    for path, m in zip(paths, batches[0]):
+        write_fastq(path, m[:n])
+    argv = ["-l", "IU", "-1", paths[0], "-2", paths[1], "--dumpEq",
+            "--batchSize", str(n), "--scanShrink", "2"]
+    launches = {}
+    _launch_counts(reset=True)
+    out_g, _, _, _ = run_quant_cli(cli, wdir, idx_dir, "shrink2_cuda", argv,
+                                   maps=True)
+    lc = _launch_counts()
+    launches["shrink2_2048"] = lc["mmp_scan_stamped"]
+    require(lc["mmp_scan_stamped"] == lc["mmp_scan"] > 0,
+            f"quant --scanShrink 2 launched {lc}: every launch stamped")
+    out_c = os.path.join(wdir, "quant_shrink2_cpu")
+    shutil.rmtree(out_c, ignore_errors=True)
+    t0 = time.time()
+    require(cli.main(["quant", "-i", idx_dir, "-o", out_c, "--hitCapacity",
+                      "64", "--hitCapacityMax", "1024", *argv, "--device",
+                      "cpu"]) == 0, "quant --scanShrink 2 --device cpu failed")
+    cpu_s = time.time() - t0
+    eq = [open(os.path.join(o, "aux", "eq_classes.txt")).read()
+          for o in (out_g, out_c)]
+    require(eq[0] == eq[1], "quant --scanShrink 2: eq_classes.txt on cuda "
+            "differs from the CPU run's")
+    sf = [open(os.path.join(o, "quant.sf")).read().splitlines()
+          for o in (out_g, out_c)]
+    cols = [[r.split("\t") for r in x] for x in sf]
+    require(all(a[:3] == b[:3] for a, b in zip(*cols))
+            and len(cols[0]) == len(cols[1]),
+            "quant --scanShrink 2: quant.sf names or lengths differ")
+    require(np.allclose(_quant_sf(out_g), _quant_sf(out_c), rtol=1e-5,
+                        atol=0), "quant --scanShrink 2: quant.sf on cuda "
+            "differs from the CPU run's beyond its 6 printed digits")
+    same = "identical" if sf[0] == sf[1] else "equal to its printed digits"
+    say(f"quant -l IU --scanShrink 2 on {n} fragments: eq_classes.txt "
+        f"({int(eq[0].split(chr(10))[1])} classes) identical on cuda and "
+        f"cpu, quant.sf {same}; stamped launches "
+        f"{lc['mmp_scan_stamped']}; cpu run {cpu_s:.1f}s [{card}]")
+
+    # phase 7's paired run (two production batches) again at --scanShrink
+    # 2, beside that run's readings at 1: the second batch's ms is that of
+    # a warm process
+    paths = [os.path.join(wdir, f"reads_pe100_{i}.fq") for i in (1, 2)]
+    B = batches[0][0].shape[0]
+    _launch_counts(reset=True)
+    t0 = time.time()
+    _, meta, _, stats = run_quant_cli(
+        cli, wdir, idx_dir, "shrink2_pe100",
+        ["-l", "IU", "-1", paths[0], "-2", paths[1], "--batchSize", str(B),
+         "--scanShrink", "2"], maps=True)
+    wall = time.time() - t0
+    lc = _launch_counts()
+    require(lc["mmp_scan_stamped"] == lc["mmp_scan"] > 0,
+            f"quant --scanShrink 2 launched {lc}: every launch stamped")
+    launches["shrink2_pe100"] = lc["mmp_scan_stamped"]
+    single = os.path.join(wdir, "quant_pe100")
+    with open(os.path.join(single, "aux", "meta_info.json")) as fh:
+        meta1 = json.load(fh)
+    for shrink, m, st in ((1, meta1, _done_stats(single)),
+                          (2, meta, stats)):
+        qt = m["quant_timings"]
+        say(f"quant -l IU --scanShrink {shrink} (pe100, "
+            f"{m['num_processed']} fragments in batches of {B}): mapped "
+            f"{m['num_mapped']} "
+            f"({100.0 * m['num_mapped'] / m['num_processed']:.4f}%), "
+            f"{st['num_eq_classes']} eq classes, "
+            f"{qt['escalated_fragments']} escalated, batch ms "
+            f"{qt['batch_ms']}"
+            + (f", scan launches {lc['mmp_scan']} (stamped "
+               f"{lc['mmp_scan_stamped']}), CLI wall {wall:.1f}s"
+               if shrink == 2 else " (phase 7's run)") + f" [{card}]")
+    say(f"shrink: phase took {time.time() - t_start:.1f}s")
+    row = {"ms": main["ms"], "ms_stampless": main["ms_stampless"],
+           "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+           "bound_by": main["bound_by"],
+           "max_abs_err": max(v["max_abs_err"] for v in kv.values()),
+           "cut_pass_ms": cut_ms, "shapes": kv}
+    return row, launches
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -2946,7 +3215,7 @@ def main(argv=None) -> int:
     ap.add_argument("--batch", type=int, default=65536)
     ap.add_argument("--kernel-frags", type=int, default=8192)
     ap.add_argument("--oracle-frags", type=int, default=2048)
-    ap.add_argument("--bench-reads", type=int, default=10_000_000,
+    ap.add_argument("--bench-reads", type=int, default=2_000_000,
                     help="fragments of the bench's gene-family run "
                     "(phase 16)")
     ap.add_argument("--bias-txps", type=int, default=2000,
@@ -2989,17 +3258,8 @@ def main(argv=None) -> int:
         kernels = ([] if args.kernel_only or args.against
                    else [phase_ubench(torch, smi)])
         note("ubench done")
-        idx_dir, wdir, batches, long_batch, xl, seqs = phase_world(args,
-                                                                    cli)
-        idx4_dir = os.path.join(wdir, f"index_{SHARDS}shards")
-        t0 = time.time()
-        fresh = not os.path.exists(os.path.join(idx4_dir, "header.json"))
-        require(cli.main(["index", "-t", os.path.join(wdir, "transcripts.fa"),
-                          "-o", idx4_dir, "-k", "31", "--indexShards",
-                          str(SHARDS)]) == 0, "sharded index build failed")
-        say(f"sharded index: {SHARDS} shards, "
-            f"{'built' if fresh else 'reused'} in {time.time() - t0:.1f}s "
-            "through `index --indexShards`")
+        (idx_dir, idx4_dir, wdir, batches, long_batch, xl,
+         seqs) = phase_world(args, cli)
         note("world ready")
         t0 = time.time()
         index = load_index(idx_dir)
@@ -3139,10 +3399,12 @@ def main(argv=None) -> int:
             say(smi)
             return 0
         sample = tuple(m[:of] for m in batches[0])
-        ref_br = oracle_check(index, tidx, sample, "IU", (64, 2), out=say)
-        oracle_check(index, tidx, (batches[0][0][:of],), "U", (64,), out=say)
+        ref_br = oracle_check(index, tidx, sample, "IU", (64, 2), out=say,
+                              workers=ORACLE_WORKERS)
+        oracle_check(index, tidx, (batches[0][0][:of],), "U", (64,), out=say,
+                     workers=ORACLE_WORKERS)
         oracle_check(index, tidx, tuple(m[:of // 2] for m in long_batch),
-                     "IU", (64,), out=say)
+                     "IU", (64,), out=say, workers=ORACLE_WORKERS)
         note("oracle done")
         profiled_ms = stage_breakdown(index, tidx, batches, smi, out=say)
         note("stages done")
@@ -3204,6 +3466,10 @@ def main(argv=None) -> int:
         capacity_launches, kv_capacity = phase_capacity(smi, copy_rate)
         kv.update(kv_capacity)
         note("capacity done")
+        shrink_row, shrink_launches = phase_shrink(
+            torch, cli, wdir, idx_dir, idx15_dir, batches, kf, smi,
+            copy_rate)
+        note("shrink done")
         require("jax" not in sys.modules
                 and "sailfish_tpu" not in sys.modules,
                 "jax or the JAX package was imported")
@@ -3306,6 +3572,14 @@ def main(argv=None) -> int:
     rep["launches_by_run"] = {
         "sharded_kmer_cli": launches_sh["mmp_replay_shards"],
         f"sharded_k{PREFIX_K}_map": launches_sh15["mmp_replay"]}
+    # the scan's stamped launch (--scanShrink): ms, plain_ms and bound_ms
+    # of the paired batch's lanes; launches of the paired run at N = 2
+    kernels.insert(6, {
+        "name": "mmp_scan_stamped", "route": "cuda", "source": KERNEL_SRC,
+        "replaces": TPU_KERNEL, "function_of": SHRINK_SCAN,
+        "launches": shrink_launches["shrink2_pe100"],
+        "library_ms": None, **shrink_row,
+        "launches_by_run": shrink_launches})
     say(json.dumps({"kernels": kernels}))
     say(smi)
     say(json.dumps({"ok": True, "device": {

@@ -123,13 +123,14 @@ def _build(compiler: str, flags, sources, out: Path,
 
 
 def _bind(lib: ctypes.CDLL) -> None:
-    # the 64-bit scan takes the table's high words (`ht_hi`) after `ht`
+    # the 64-bit scan takes the table's high words (`ht_hi`) after `ht`;
+    # every scan takes the step stamps before the device
     for scan, table in ((lib.sf_mmp_scan, [_P]),
                         (lib.sf_mmp_scan64, [_P, _P])):
         scan.argtypes = [
             _P, _P, _P, _I, _I, _P, _LL, _P, *table, _P, _P,
             _I, _I, _I, _I, _I, _I, _I,
-            _P, _P, _P, _P, _P, _I, _P,
+            _P, _P, _P, _P, _P, _P, _I, _P,
         ]
         scan.restype = _I
     # the prefix route: table_lo, packed and P in place of the table, and
@@ -138,7 +139,7 @@ def _bind(lib: ctypes.CDLL) -> None:
         scan.argtypes = [
             _P, _P, _P, _I, _I, _P, _LL, _P, _P, _P, _I, _P, _P,
             _I, _I, _I, _I, _I,
-            _P, _P, _P, _P, _P, _P, _I, _P,
+            _P, _P, _P, _P, _P, _P, _P, _I, _P,
         ]
         scan.restype = _I
     lib.sf_mmp_facts.argtypes = [

@@ -294,12 +294,13 @@ def gencode_world(args):
 
 
 # ---------------------------------------------------------------- checks
-def oracle_check(index, tidx, mates, lib, caps, cap_max=1024, out=log):
+def oracle_check(index, tidx, mates, lib, caps, cap_max=1024, out=log,
+                 workers=1):
     """Eq classes of a sample from the device backend against the
-    refimpl backend (the numpy reference mapper).  `mates` is (m1, m2)
-    for a paired library or (m,) for a single-end one, unpadded; `caps`
-    the --hitCapacity values to run.  Returns the oracle's
-    BatchResult."""
+    refimpl backend (the numpy reference mapper, in `workers` forked
+    processes).  `mates` is (m1, m2) for a paired library or (m,) for a
+    single-end one, unpadded; `caps` the --hitCapacity values to run.
+    Returns the oracle's BatchResult."""
     exp = parse_library_format(lib)
     bs = tuple(fastq_batch(m) for m in mates)
     n, rl = mates[0].shape
@@ -325,7 +326,8 @@ def oracle_check(index, tidx, mates, lib, caps, cap_max=1024, out=log):
         ports[cap] = (br, escalated, time.time() - t0)
     t0 = time.time()
     oracle = RefMapperBackend(index, QuantOpts(hit_capacity=64,
-                                               hit_capacity_max=cap_max))
+                                               hit_capacity_max=cap_max),
+                              workers=workers)
     ref_br = oracle.finish_batch(run(oracle))
     ref = dict(zip(ref_br.labels, ref_br.label_counts.tolist()))
     t_ref = time.time() - t0
@@ -495,8 +497,11 @@ class Bench:
         n = self.args.check
         if n <= 0:
             return 0
+        # on the card the host's cores are free for the oracle
         ref = oracle_check(index, tidx, (m1[:n], m2[:n]), "IU",
-                           (self.args.hitCapacity,), self.args.hitCapacityMax)
+                           (self.args.hitCapacity,), self.args.hitCapacityMax,
+                           workers=((os.cpu_count() or 1)
+                                    if self.dev.type == "cuda" else 1))
         eq = EqClasses.from_items(list(zip(ref.labels, ref.label_counts)))
         em = run_em(eq, effective_lengths(index), float(eq.total_count()),
                     index.num_transcripts, device=self.dev,

@@ -17,10 +17,13 @@ their dumps and infers once (parallel/launcher.py; it refuses the bias
 flags).  32-bit and 64-bit (big_sa) indexes, indexes of any k (k < 17
 maps through the prefix table) and sharded indexes (`index
 --indexShards D`; every shard on `--device`) are taken.  Refused with a
-usage error: --scanShrink above 1, and on a sharded index `--backend
-refimpl` and the bias flags (the JAX package's messages).  The TPU
-path's fast-path tuning knobs and the kernel choice change no output
-and are accepted and ignored.  `sf` prints the logo.  The op-chain
+usage error: --scanShrink above 1 with --kernel pallas or xla2, and on
+a sharded index `--backend refimpl` and the bias flags (the JAX
+package's messages).  --scanShrink N gives the results of the JAX
+package's xla kernel, which its `--kernel auto` runs off a TPU; a
+sharded index ignores it, as there.  The TPU path's fast-path tuning
+knobs and the kernel choice change no output and are accepted and
+ignored.  `sf` prints the logo.  The op-chain
 microbenchmark is an entry point of its own: ``python -m
 sailfish_tpu_torch.ubench``.
 """
@@ -154,7 +157,8 @@ def _add_quant_parser(sub):
     p.add_argument("--kernel", choices=["auto", "xla", "xla2", "pallas"],
                    default="auto",
                    help="the JAX package's kernel choice; accepted and "
-                   "ignored (the port has one scan kernel)")
+                   "ignored (the port has one scan kernel), but pallas "
+                   "and xla2 refuse --scanShrink above 1")
     p.add_argument("--batchSize", type=int, default=65536)
     p.add_argument("--dtype", choices=["float32", "float64"], default="")
     p.add_argument("--hitCapacity", type=int, default=64,
@@ -170,8 +174,14 @@ def _add_quant_parser(sub):
                    help="accepted and ignored (a tuning knob of the JAX "
                    "package's xla2 kernel; identical results)")
     p.add_argument("--scanShrink", type=int, default=1,
-                   help=">1 is refused (the JAX package's lossy "
-                   "compacted-scan mode is not ported)")
+                   help=">1: the JAX package's xla kernel's compacted "
+                   "scan: after the first step the scanned lanes shrink "
+                   "by this factor a step (64 at least), and the lanes "
+                   "left out stop with the MMPs they have. It changes "
+                   "results (fewer hits where reads need many steps) "
+                   "and is not a speed option here; the same results as "
+                   "the JAX package's --kernel xla. A sharded index "
+                   "ignores it")
     p.add_argument("--mmpSkip", choices=["jump", "nip"], default="nip",
                    help="MMP advance rule: nip = the RapMap-style overlap "
                    "re-probe (reference parity, default), jump = restart "
@@ -377,7 +387,7 @@ def _main_quant(parser, args, argv) -> int:
     launch = args.numShards > 1 and args.shardId < 0
     try:
         opts = _quant_opts(args, lib_type, m1, m2, um, libraries)
-        check_slice(opts)
+        check_slice(opts, kernel=args.kernel)
         if launch:
             check_launch(opts)
     except (NotImplementedError, ValueError) as e:

@@ -4,8 +4,9 @@
 Counterpart of sailfish_tpu/config.py.  The TPU path's kernel choice and
 fast-path tuning knobs (`kernel`, `escalation_backend`, `xscan_*`, ...)
 have no field here: the CLI accepts their flags and ignores them, since
-by their contracts they change no output.  The fields the port acts on
-are validated at construction.
+by their contracts they change no output (it reads `--kernel` only to
+refuse pallas and xla2 with `scan_shrink` > 1, quant.check_slice).  The
+fields the port acts on are validated at construction.
 
 Defaults mirror the reference CLI defaults
 (src/SailfishQuantify.cpp:1066-1153)."""
@@ -100,9 +101,13 @@ class QuantOpts:
                                    # only by the read length).  Each
                                    # probed position (hit OR miss)
                                    # consumes one step in every backend.
-    scan_shrink: int = 1           # >1 (compacted scan steps, a lossy
-                                   # mode of the JAX package) is refused
-                                   # by quant.check_slice
+    scan_shrink: int = 1           # >1: the JAX package's XLA kernel's
+                                   # compacted scan (map/shrink.py): after
+                                   # step 0 the scanned width shrinks by
+                                   # this factor a step (to 64 at least)
+                                   # and the lanes beyond it stop, keeping
+                                   # their MMPs.  Changes results; <= 1 is
+                                   # no compaction
     mmp_skip: str = "nip"          # after an MMP of length l at position
                                    # i: "nip" -> i+max(1, l-k+1) (the
                                    # RapMap SACollector overlap re-probe

@@ -108,6 +108,17 @@
 // 32-byte sector or two) rather than those compared then hold the route
 // back, beside the seed's own latency (PERF.md).
 //
+// Step stamps (an optional output, for the XLA kernel's compacted scan,
+// `--scanShrink`, map/shrink.py): per lane the step at which each MMP was
+// recorded and the step of the first overflow.  A lane is active at step s
+// exactly when s < meta[:, 3], and lanes are independent but for the XLA
+// kernel's ranking between steps, so stamps and meta give every lane's
+// rank at every step and a cut applied after one uncompacted launch is
+// exact.  A window consumes several positions in one ballot: its first
+// overflow's step is the step count before the window plus the offset of
+// the overflow's position, not the step at which the window ended.  With a
+// null `stamps` nothing of this runs.
+//
 // A sharded index (a sub-index per contiguous transcript range, map/
 // facts.py) needs the scan of the whole text, which no shard holds.  The
 // scan's state enters a step only through `active` and `nm`, so what a
@@ -717,7 +728,8 @@ mmp_scan_kernel(const uint8_t* __restrict__ codes,   // (n_lanes, L)
                 uint8_t* __restrict__ out_vld,       // (n_lanes, M*C)
                 int32_t* __restrict__ meta,          // (n_lanes, 4)
                 unsigned long long* rows_read,       // nullptr: not counted
-                unsigned long long* chunks_read) {   // prefix route only
+                unsigned long long* chunks_read,     // prefix route only
+                int32_t* __restrict__ stamps) {      // nullptr: not written
   extern __shared__ uint4 smem[];
   const int slot = threadIdx.x / kGroup;          // the lane within the block
   const int t = threadIdx.x & (kGroup - 1);       // the thread within the lane
@@ -744,6 +756,9 @@ mmp_scan_kernel(const uint8_t* __restrict__ codes,   // (n_lanes, L)
   const size_t row = (size_t)lane * M * C;
 
   int i = 0, nm = 0, steps = 0, over = 0, mlen = 0;
+  // the step of the lane's first overflow, kept for `stamps` only
+  int over_step = -1;
+  const size_t srow = (size_t)lane * (M + 1);
   // the window: positions [wb, wb + ww); thread t holds position wb + t
   int wb = 0, ww = 0;
   bool w_found = false;
@@ -817,6 +832,11 @@ mmp_scan_kernel(const uint8_t* __restrict__ codes,   // (n_lanes, L)
     const unsigned overm =
         (__ballot_sync(gmask, w_found && w_cnt > C) >> gbase) & ahead;
     const int p = candm ? __ffs((int)candm) - 1 : lim;
+    // the positions off .. p - 1 take steps steps .. steps + p - off - 1:
+    // the first overflow is the lowest overflow bit at or above off
+    // (`ahead`), not the window's end
+    if (stamps != nullptr && !over && (overm & low_bits(p)))
+      over_step = steps + (__ffs((int)(overm & low_bits(p))) - 1) - off;
     steps += p - off;
     if (overm & low_bits(p)) over = 1;
     i = wb + p;
@@ -864,6 +884,9 @@ mmp_scan_kernel(const uint8_t* __restrict__ codes,   // (n_lanes, L)
         group_zero(out_vld + base + cend, nz, t);
       }
       if (nm == 0) mlen = lstar;
+      // MMP nm was found at step steps - 1 (the step counted above)
+      if (stamps != nullptr && t == 0)
+        stamps[srow + nm] = steps - 1;
       ++nm;
       i += skip_jump ? (lstar + 1) : max(1, lstar - k + 1);
     } else {
@@ -881,6 +904,12 @@ mmp_scan_kernel(const uint8_t* __restrict__ codes,   // (n_lanes, L)
   }
   if (t == 0)
     reinterpret_cast<int4*>(meta)[lane] = make_int4(nm, over, mlen, steps);
+  if (stamps != nullptr) {
+    // -1 in the slots of the MMPs not found; slot M: the first overflow
+    for (int m = nm + t; m < M; m += kGroup)
+      stamps[srow + m] = -1;
+    if (t == 0) stamps[srow + M] = over_step;
+  }
   if constexpr (kPrefix) count_chunks(chunks_read, chunks, t, gmask);
 }
 
@@ -1281,8 +1310,8 @@ int launch_scan(const void* codes, const void* pw, const void* lens,
                 const void* txp_of_pos, const void* txp_offsets, int k,
                 int C, int M, int max_steps, int ht_bits, int ht_probes,
                 int skip_jump, void* out_txp, void* out_pos, void* out_vld,
-                void* meta, void* rows_read, void* chunks_read, int device,
-                void* stream) {
+                void* meta, void* rows_read, void* chunks_read,
+                void* stamps, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (n_lanes == 0) return 0;
@@ -1306,7 +1335,7 @@ int launch_scan(const void* codes, const void* pw, const void* lens,
       (const Pos*)table_lo, (const uint32_t*)packed, pbits,
       (int32_t*)out_txp, (int32_t*)out_pos, (uint8_t*)out_vld,
       (int32_t*)meta, (unsigned long long*)rows_read,
-      (unsigned long long*)chunks_read);
+      (unsigned long long*)chunks_read, (int32_t*)stamps);
   return (int)cudaGetLastError();
 }
 
@@ -1389,19 +1418,23 @@ extern "C" {
 // `rows_read`, when not null, points at a 64-bit device counter to which
 // the kernel adds the table rows it reads.  pw, codes and meta must be
 // 16-byte aligned and L a multiple of 8.  Returns the cudaError_t of the
-// launch (0 = success).  sa and txp_offsets are int32.
+// launch (0 = success).  sa and txp_offsets are int32.  `stamps`, when not
+// null, is (n_lanes, M + 1) int32, written whole: the step of each MMP
+// found, -1 for those not found, and in slot M the step of the lane's
+// first overflow or -1 (every scan entry point takes the same argument
+// before `device`).
 int sf_mmp_scan(const void* codes, const void* pw, const void* lens,
                 int n_lanes, int L, const void* text, long long text_bytes,
                 const void* sa, const void* ht, const void* txp_of_pos,
                 const void* txp_offsets, int k, int C, int M, int max_steps,
                 int ht_bits, int ht_probes, int skip_jump, void* out_txp,
                 void* out_pos, void* out_vld, void* meta, void* rows_read,
-                int device, void* stream) {
+                void* stamps, int device, void* stream) {
   return launch_scan<int32_t, false>(
       codes, pw, lens, n_lanes, L, text, text_bytes, sa, ht, nullptr,
       nullptr, nullptr, 0, txp_of_pos, txp_offsets, k, C, M, max_steps,
       ht_bits, ht_probes, skip_jump, out_txp, out_pos, out_vld, meta,
-      rows_read, nullptr, device, stream);
+      rows_read, nullptr, stamps, device, stream);
 }
 
 // The same for a 64-bit index: sa and txp_offsets are int64, the lo
@@ -1413,12 +1446,13 @@ int sf_mmp_scan64(const void* codes, const void* pw, const void* lens,
                   const void* txp_of_pos, const void* txp_offsets, int k,
                   int C, int M, int max_steps, int ht_bits, int ht_probes,
                   int skip_jump, void* out_txp, void* out_pos, void* out_vld,
-                  void* meta, void* rows_read, int device, void* stream) {
+                  void* meta, void* rows_read, void* stamps, int device,
+                  void* stream) {
   return launch_scan<long long, false>(
       codes, pw, lens, n_lanes, L, text, text_bytes, sa, ht, ht_hi, nullptr,
       nullptr, 0, txp_of_pos, txp_offsets, k, C, M, max_steps, ht_bits,
       ht_probes, skip_jump, out_txp, out_pos, out_vld, meta, rows_read,
-      nullptr, device, stream);
+      nullptr, stamps, device, stream);
 }
 
 // The prefix route (an index without a k-mer table): `table_lo` holds the
@@ -1436,12 +1470,12 @@ int sf_mmp_scan_prefix(const void* codes, const void* pw, const void* lens,
                        int C, int M, int max_steps, int skip_jump,
                        void* out_txp, void* out_pos, void* out_vld,
                        void* meta, void* rows_read, void* chunks_read,
-                       int device, void* stream) {
+                       void* stamps, int device, void* stream) {
   return launch_scan<int32_t, true>(
       codes, pw, lens, n_lanes, L, text, text_bytes, sa, nullptr, nullptr,
       table_lo, packed, pbits, txp_of_pos, txp_offsets, k, C, M, max_steps,
       0, 0, skip_jump, out_txp, out_pos, out_vld, meta, rows_read,
-      chunks_read, device, stream);
+      chunks_read, stamps, device, stream);
 }
 
 int sf_mmp_scan_prefix64(const void* codes, const void* pw, const void* lens,
@@ -1452,12 +1486,12 @@ int sf_mmp_scan_prefix64(const void* codes, const void* pw, const void* lens,
                          int k, int C, int M, int max_steps, int skip_jump,
                          void* out_txp, void* out_pos, void* out_vld,
                          void* meta, void* rows_read, void* chunks_read,
-                         int device, void* stream) {
+                         void* stamps, int device, void* stream) {
   return launch_scan<long long, true>(
       codes, pw, lens, n_lanes, L, text, text_bytes, sa, nullptr, nullptr,
       table_lo, packed, pbits, txp_of_pos, txp_offsets, k, C, M, max_steps,
       0, 0, skip_jump, out_txp, out_pos, out_vld, meta, rows_read,
-      chunks_read, device, stream);
+      chunks_read, stamps, device, stream);
 }
 
 // The facts mode on one shard (see facts_kernel): `pos64` selects the

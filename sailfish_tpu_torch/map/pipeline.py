@@ -18,7 +18,9 @@ batch, pulled by the host only through `BatchStats`' lazy functions.
 Fragments whose candidate set overflowed `hit_capacity` are remapped by
 the same scan kernel at `effective_hit_capacity()` (the escalation pass,
 `_ESC_ROWS` fragments at a time) and their contribution added, bias
-observations included.  The
+observations included.  `--scanShrink N` compacts both passes as the JAX
+package's XLA kernel does (map/shrink.py), over the lane counts of its
+batches padded to --batchSize (`_ESC_ROWS` in the escalation pass).  The
 JAX package's host-oracle route for that pass does not exist here: the
 card holds the wider outputs.
 
@@ -235,12 +237,17 @@ class DeviceMapperBackend:
         return {"dev": dev, "n": b.count, "batches": (b, None),
                 "L": (b.codes.shape[1],)}
 
-    def _map(self, codes, lens, L):
+    def _map(self, codes, lens, L, mates=1):
+        """The hits of one lane block of `mates` mates' reads.  With
+        --scanShrink the compaction's first width is the JAX package's
+        lane count: each mate's rows padded to --batchSize, fwd and rc."""
         o = self.opts
+        rows = max(codes.shape[0] // mates, o.batch_size)
         return map_oriented_lanes(
             self.tindex, codes, lens, cand_cap=o.hit_capacity,
             max_mmps=o.max_mmps, max_steps=o.effective_scan_steps(L),
-            skip_jump=(o.mmp_skip == "jump"))
+            skip_jump=(o.mmp_skip == "jump"), scan_shrink=o.scan_shrink,
+            pad_lanes=2 * mates * rows)
 
     def submit_pe(self, b1, b2, expected: LibraryFormat):
         """Queue one batch on the device; returns the token the
@@ -275,7 +282,7 @@ class DeviceMapperBackend:
             if L1 == L2:
                 # both mates in one lane block: rows [m1; m2] x [fwd; rc]
                 hits = self._map(torch.cat([c1, c2]), torch.cat([l1, l2]),
-                                 L1)
+                                 L1, mates=2)
                 h1 = (part(hits, slice(0, B)),
                       part(hits, slice(2 * B, 3 * B)))
                 h2 = (part(hits, slice(B, 2 * B)),
@@ -460,30 +467,60 @@ class DeviceMapperBackend:
         return self.finish_batch(self.submit_se(b, expected))
 
 
+# the fragment mapper of the batch a forked worker maps (_map_span)
+_FORKED_ONE = None
+
+
+def _map_span(span):
+    return [_FORKED_ONE(i) for i in range(*span)]
+
+
 class RefMapperBackend:
     """Host mapping with the numpy reference mapper, the correctness
     oracle (`--backend refimpl`), behind the device backend's interface.
     Mapping is synchronous: the token is the batch's BatchResult, and
-    eq classes fold by exact label."""
+    eq classes fold by exact label.  With `workers` > 1 a batch's
+    fragments are mapped in that many forked processes, spans of them in
+    order, which share the index with this one (each fragment maps on
+    its own, so the result is the same)."""
 
-    def __init__(self, index: QuasiIndex, opts: QuantOpts):
+    def __init__(self, index: QuasiIndex, opts: QuantOpts,
+                 workers: int = 1):
         self.opts = opts
         self.mapper = RefMapper(index, opts)
+        self.workers = workers
 
     @staticmethod
     def accumulator() -> EqClassAccumulator:
         return EqClassAccumulator()
 
+    def _map_all(self, one, n: int) -> list:
+        if self.workers <= 1 or n < 2 * self.workers:
+            return [one(i) for i in range(n)]
+        import multiprocessing
+
+        global _FORKED_ONE
+        edges = np.linspace(0, n, 4 * self.workers + 1).astype(int)
+        _FORKED_ONE = one
+        try:
+            with multiprocessing.get_context("fork").Pool(
+                    self.workers) as pool:
+                parts = pool.map(_map_span, list(zip(edges[:-1],
+                                                     edges[1:])), 1)
+        finally:
+            _FORKED_ONE = None
+        return [rm for part in parts for rm in part]
+
     def map_pe_batch(self, b1, b2, expected: LibraryFormat) -> BatchResult:
-        return self._wrap([
-            self.mapper.map_fragment_pe(b1.codes[i, :b1.lens[i]],
-                                        b2.codes[i, :b2.lens[i]], expected)
-            for i in range(b1.count)])
+        return self._wrap(self._map_all(
+            lambda i: self.mapper.map_fragment_pe(
+                b1.codes[i, :b1.lens[i]], b2.codes[i, :b2.lens[i]],
+                expected), b1.count))
 
     def map_se_batch(self, b, expected: LibraryFormat) -> BatchResult:
-        return self._wrap([
-            self.mapper.map_fragment_se(b.codes[i, :b.lens[i]], expected)
-            for i in range(b.count)])
+        return self._wrap(self._map_all(
+            lambda i: self.mapper.map_fragment_se(b.codes[i, :b.lens[i]],
+                                                  expected), b.count))
 
     @staticmethod
     def _wrap(rms) -> BatchResult:

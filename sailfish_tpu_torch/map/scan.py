@@ -27,10 +27,16 @@ Outputs, per lane (B2 lanes, C = cand_cap, M = max_mmps):
   valid     bool  (B2, M*C)  candidate achieved the MMP length lstar
   meta      int32 (B2, 4)    [n_mmps, overflow, mlen (first MMP's lstar),
                               probed positions]
+  stamps    int32 (B2, M+1)  with `stamps=True` only: the step at which
+                             MMP m was recorded, -1 for those not found;
+                             slot M the step of the first overflow, or -1
 Slots that hold no candidate (behind an MMP's cnt candidates, and all
 slots of MMPs a lane did not find) are zero; the kernel writes them
-itself, so its buffers start uninitialised.  Slot order within an MMP
-follows the suffix array; the post-pass (map/postpass.py) canonicalizes.
+itself, so its buffers start uninitialised.  A lane is active at step s
+exactly when s < meta[:, 3]; with the stamps that fixes its state before
+every step, which the compacted scan (map/shrink.py) reads.  Slot order
+within an MMP follows the suffix array; the post-pass (map/postpass.py)
+canonicalizes.
 The index text carries trailing padding (index/device.py TEXT_PAD): the
 kernel's 16-byte text compare may read it, and the plain version clamps
 into it, where code 4 ends a match as the final separator does.
@@ -65,13 +71,15 @@ def _check(lanes: dict, index: TorchIndex, cand_cap: int, max_mmps: int):
 
 
 def mmp_scan(lanes: dict, index: TorchIndex, *, cand_cap: int,
-             max_mmps: int, max_steps: int, skip_jump: bool = False):
-    """Scan every lane; returns (txp, pos, valid, meta) as documented in
-    the module docstring."""
+             max_mmps: int, max_steps: int, skip_jump: bool = False,
+             stamps: bool = False):
+    """Scan every lane; returns (txp, pos, valid, meta), and the step
+    stamps behind them with `stamps`, as documented in the module
+    docstring."""
     _check(lanes, index, cand_cap, max_mmps)
     dev = lanes["codes"].device
     kw = dict(cand_cap=cand_cap, max_mmps=max_mmps, max_steps=max_steps,
-              skip_jump=skip_jump)
+              skip_jump=skip_jump, stamps=stamps)
     if dev.type == "cuda":
         return mmp_scan_cuda(lanes, index, **kw)
     if dev.type == "cpu":
@@ -79,15 +87,19 @@ def mmp_scan(lanes: dict, index: TorchIndex, *, cand_cap: int,
     raise ValueError(f"unsupported device: {dev}")
 
 
-def _outputs(B2: int, C: int, M: int, dev, out):
-    """The four output tensors of a scan: fresh and uninitialised (the
-    kernel writes every slot), or the caller's `out`, checked."""
+def _outputs(B2: int, C: int, M: int, dev, out, stamps: bool):
+    """The output tensors of a scan: fresh and uninitialised (the kernel
+    writes every slot), or the caller's `out`, checked; a fifth, the
+    step stamps, with `stamps`."""
     shapes = (((B2, M * C), torch.int32), ((B2, M * C), torch.int32),
               ((B2, M * C), torch.uint8), ((B2, 4), torch.int32))
+    if stamps:
+        shapes += (((B2, M + 1), torch.int32),)
     if out is None:
         return tuple(torch.empty(s, dtype=d, device=dev) for s, d in shapes)
-    if len(out) != 4:
-        raise ValueError("out needs four tensors: txp, pos, valid, meta")
+    if len(out) != len(shapes):
+        raise ValueError("out needs the tensors txp, pos, valid, meta"
+                         + (" and stamps" if stamps else ""))
     for o, (s, d) in zip(out, shapes):
         if o.shape != s or o.dtype != d or o.device != dev \
                 or not o.is_contiguous() or o.data_ptr() % 16:
@@ -129,7 +141,8 @@ def _counter(t: torch.Tensor | None, dev, name: str):
 
 def mmp_scan_cuda(lanes: dict, index: TorchIndex, *, cand_cap: int,
                   max_mmps: int, max_steps: int, skip_jump: bool = False,
-                  out=None, rows_read: torch.Tensor | None = None,
+                  stamps: bool = False, out=None,
+                  rows_read: torch.Tensor | None = None,
                   chunks_read: torch.Tensor | None = None):
     """Launch csrc/mmp_scan.cu on the current stream of the lanes' CUDA
     device, in the index's route and width: `sf_mmp_scan` (or
@@ -137,17 +150,21 @@ def mmp_scan_cuda(lanes: dict, index: TorchIndex, *, cand_cap: int,
     `sf_mmp_scan_prefix` (or `sf_mmp_scan_prefix64`) through the prefix
     table of an index without one.  `mmp_scan_cuda.launches` counts
     successful launches of the k-mer route, `mmp_scan_cuda.prefix_launches`
-    those of the prefix route.
+    those of the prefix route; `mmp_scan_cuda.stamped_launches` those of
+    either route that wrote stamps.
 
     `out`, when given, is four preallocated tensors (int32 txp and pos,
     uint8 valid, int32 meta) that the kernel fills instead of fresh ones;
-    whatever they held is overwritten, every slot.  `rows_read`, when
-    given, is a one-element int64 tensor on the device to which the kernel
-    adds the 64-byte table rows it reads, or on the prefix route the
-    prefix-table lookups and binary-search steps (a measurement aid: it
-    costs an atomic per probe window).  `chunks_read`, the same on the
-    prefix route only, receives the 16-byte text chunks its compare reads
-    (`work["chunks"]` of the plain version counts those needed)."""
+    whatever they held is overwritten, every slot.  With `stamps` the
+    kernel also writes the step stamps, a fifth output (and a fifth
+    tensor of `out`, int32 (B2, M + 1)).
+    `rows_read`, when given, is a one-element int64 tensor on the device
+    to which the kernel adds the 64-byte table rows it reads, or on the
+    prefix route the prefix-table lookups and binary-search steps (a
+    measurement aid: it costs an atomic per probe window).
+    `chunks_read`, the same on the prefix route only, receives the
+    16-byte text chunks its compare reads (`work["chunks"]` of the plain
+    version counts those needed)."""
     from .. import _ext
 
     dev, B2, L, (codes, pw, lens) = card_lanes(lanes, index, cand_cap,
@@ -158,7 +175,8 @@ def mmp_scan_cuda(lanes: dict, index: TorchIndex, *, cand_cap: int,
         raise ValueError("chunks_read is counted on the prefix route only")
     kl = _ext.load()
     C, M = cand_cap, max_mmps
-    txp, pos, vld, meta = _outputs(B2, C, M, dev, out)
+    outs = _outputs(B2, C, M, dev, out, stamps)
+    txp, pos, vld, meta = outs[:4]
     stream = torch.cuda.current_stream(dev).cuda_stream
     wide = index.pos_bits == 64
     if index.prefix_route:
@@ -181,18 +199,21 @@ def mmp_scan_cuda(lanes: dict, index: TorchIndex, *, cand_cap: int,
         *seed, index.txp_of_pos.data_ptr(), index.txp_offsets.data_ptr(),
         index.k, C, M, max_steps, *table, int(skip_jump), txp.data_ptr(),
         pos.data_ptr(), vld.data_ptr(), meta.data_ptr(), *counters,
-        dev.index, stream,
+        outs[4].data_ptr() if stamps else None, dev.index, stream,
     )
     kl.check(err, "mmp_scan kernel launch")
     if index.prefix_route:
         mmp_scan_cuda.prefix_launches += 1
     else:
         mmp_scan_cuda.launches += 1
-    return txp, pos, vld.view(torch.bool), meta
+    if stamps:
+        mmp_scan_cuda.stamped_launches += 1
+    return (txp, pos, vld.view(torch.bool), meta, *outs[4:])
 
 
 mmp_scan_cuda.launches = 0
 mmp_scan_cuda.prefix_launches = 0
+mmp_scan_cuda.stamped_launches = 0
 
 
 def _probe(index: TorchIndex, key0: torch.Tensor, key1: torch.Tensor,
@@ -343,12 +364,15 @@ def needed_chunks(lcp: torch.Tensor, rem: torch.Tensor) -> torch.Tensor:
 
 def mmp_scan_reference(lanes: dict, index: TorchIndex, *, cand_cap: int,
                        max_mmps: int, max_steps: int,
-                       skip_jump: bool = False, work: dict | None = None):
+                       skip_jump: bool = False, stamps: bool = False,
+                       work: dict | None = None):
     """Plain torch version of the scan, vectorized over lanes: each round
     probes one position in every still-active lane, and the candidates of
     the lanes that found a k-mer with cnt <= cand_cap are flattened into
-    one list for the LCP.  Same outputs as the kernel; used by the CPU
-    path and by the on-card comparison.
+    one list for the LCP.  Same outputs as the kernel (the step stamps
+    with `stamps`: a lane's steps are the rounds it was active in, so
+    round r is its step r); used by the CPU path and by the on-card
+    comparison.
 
     `work`, when given, receives what these inputs made the scan do:
     on the k-mer route "buckets" (64-byte table rows read), on the prefix
@@ -377,13 +401,14 @@ def mmp_scan_reference(lanes: dict, index: TorchIndex, *, cand_cap: int,
     steps = torch.zeros_like(i)
     over = torch.zeros(B2, dtype=torch.bool, device=dev)
     mlen = torch.zeros_like(i)
+    stamp = torch.full((B2, M + 1), -1, dtype=torch.int64, device=dev)
     sa = index.sa.to(torch.int64)
     # the work counters stay on the device until the scan has ended:
     # buckets, candidates, text_bytes, stored, seeds, lookups,
     # search_steps, chunks
     n_work = torch.zeros(8, dtype=torch.int64, device=dev)
     cb = clean_counts(codes) if index.prefix_route else None
-    for _ in range(max_steps):
+    for r in range(max_steps):
         act = ((i + k <= lens) & (nm < M)).nonzero()[:, 0]
         if act.numel() == 0:
             break
@@ -399,6 +424,9 @@ def mmp_scan_reference(lanes: dict, index: TorchIndex, *, cand_cap: int,
             if work is not None:
                 n_work[0] += nb
         steps[act] += 1
+        if stamps:
+            first = act[found & (cnt > C) & ~over[act]]
+            stamp[first, M] = r
         over[act] |= found & (cnt > C)
         sel = (found & (cnt <= C)).nonzero()[:, 0]
         adv = torch.ones_like(ia)
@@ -435,6 +463,8 @@ def mmp_scan_reference(lanes: dict, index: TorchIndex, *, cand_cap: int,
                                     - is_[o]).to(torch.int32)
                 vld[lane_c, col] = lcp[hc] == lstar[o]
             hl = ls[hit]
+            if stamps:
+                stamp[hl, nm[hl]] = r
             mlen[hl] = torch.where(nm[hl] == 0, lstar[hit], mlen[hl])
             nm[hl] += 1
             if skip_jump:
@@ -451,4 +481,7 @@ def mmp_scan_reference(lanes: dict, index: TorchIndex, *, cand_cap: int,
                 else ("lookups", "search_steps"))
         work.update({kk: v for kk, v in got.items() if kk not in drop})
     meta = torch.stack([nm, over.long(), mlen, steps], dim=1)
-    return txp, pos, vld, meta.to(torch.int32)
+    out = (txp, pos, vld, meta.to(torch.int32))
+    if stamps:
+        out += (stamp.to(torch.int32),)
+    return out

@@ -50,7 +50,9 @@ class ShardedMapperBackend(DeviceMapperBackend):
     def tail_cap(self) -> int:
         return len(self.shards.indexes) * self.opts.hit_capacity
 
-    def _map(self, codes, lens, L):
+    def _map(self, codes, lens, L, mates=1):
+        # --scanShrink is ignored here, as the JAX package's sharded
+        # backend ignores it
         o = self.opts
         return map_oriented_lanes_sharded(
             self.shards, codes, lens, cand_cap=o.hit_capacity,

@@ -63,14 +63,19 @@ class ExperimentState:
     num_compat: int = 0
 
 
-def check_slice(opts: QuantOpts) -> list:
-    """Refuse what the port does not implement yet (NotImplementedError)
-    and the combinations the JAX package refuses (ValueError, its
+def check_slice(opts: QuantOpts, kernel: str = "auto") -> list:
+    """Refuse what the port does not implement (NotImplementedError: the
+    compacted scan under the JAX package's `kernel` choice pallas or
+    xla2) and the combinations the JAX package refuses (ValueError, its
     messages); returns the ordered read libraries."""
-    if opts.scan_shrink != 1:
+    if opts.scan_shrink > 1 and kernel in ("pallas", "xla2"):
         raise NotImplementedError(
-            "compacted scan steps (--scanShrink) are not supported by the "
-            "torch port")
+            f"--scanShrink above 1 with --kernel {kernel} is not "
+            "supported by the torch port: the JAX package compacts the "
+            "scan of its xla kernel only, so under pallas or xla2 it "
+            "leaves the main pass uncompacted (by read width and index "
+            "layout) and compacts the escalation pass; use --kernel auto "
+            "or xla, which give the JAX package's results off a TPU")
     libs = opts.read_libraries()
     if not opts.resume_from_eq:
         for lib in libs:

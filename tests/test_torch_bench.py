@@ -22,8 +22,12 @@ from sailfish_tpu.io.fastq import FastqBatch as JaxBatch
 from sailfish_tpu.libformat import parse_library_format
 from sailfish_tpu.map.pipeline import DeviceMapperBackend as JaxBackend
 from sailfish_tpu_torch import bench
+from sailfish_tpu_torch.config import QuantOpts
+from sailfish_tpu_torch.libformat import parse_library_format as port_lib
 from sailfish_tpu_torch.map import pipeline
 
+from conftest import to_batch
+from torch_port import port_index
 from torch_port import one_torch_thread  # noqa: F401  (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -213,3 +217,24 @@ def test_default_device_is_the_card():
     with pytest.raises(RuntimeError, match="is_available"):
         _run(["--txps", "5", "--batches", "1", "--batch", "8",
               "--cache", ""])
+
+
+def test_oracle_in_forked_workers_equals_one_process(toy_world):
+    """(g) The reference mapper over forked workers (the oracle gates on
+    the card) gives one process's BatchResult, fragment for fragment,
+    paired and single-end."""
+    idx = port_index(toy_world["idx"])
+    r1, r2, _ = toy_world["sim"](40, err_rate=0.3, seed=23)
+    b1, b2 = to_batch(r1), to_batch(r2)
+    opts = QuantOpts(hit_capacity=64, hit_capacity_max=1024)
+    got = {}
+    for workers in (1, 3):
+        be = pipeline.RefMapperBackend(idx, opts, workers=workers)
+        got[workers] = (be.map_pe_batch(b1, b2, port_lib("IU")),
+                        be.map_se_batch(b1, port_lib("U")))
+    for one, forked in zip(got[1], got[3]):
+        assert one.labels == forked.labels and one.per_read == forked.per_read
+        for f in ("label_counts", "mapped", "num_joint", "frag_lens",
+                  "fmt_counts"):
+            assert np.array_equal(getattr(one, f), getattr(forked, f))
+        assert int(one.mapped.sum()) > 0

@@ -169,16 +169,20 @@ def test_cli_refimpl_backend_matches_device(toy_world, tmp_path):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--scanShrink", "2"],
+    ["--kernel", "pallas", "--scanShrink", "2"],
+    ["--kernel", "xla2", "--scanShrink", "2"],
     ["--backend", "refimpl"],
-], ids=["scanShrink", "indexShards"])
+], ids=["scanShrink", "scanShrink-xla2", "indexShards"])
 def test_cli_refuses_flags_outside_slice(toy_world, tmp_path, argv):
-    """What is still outside the port: the lossy compacted scan; and, on
-    an index built with `index --indexShards`, what the JAX package
-    refuses there: the refimpl backend.  (The flags this
-    list used to hold are quantified now: tests/test_torch_resume.py,
-    the launcher form of --numShards, tests/test_torch_launcher.py, and
-    sharded indexes, tests/test_torch_shardidx.py.)"""
+    """What is still outside the port: the compacted scan under the JAX
+    package's pallas and xla2 kernel choices, whose main pass that
+    package leaves uncompacted; and, on an index built with `index
+    --indexShards`, what the JAX package refuses there: the refimpl
+    backend.  (The flags this list used to hold are quantified now:
+    tests/test_torch_resume.py, the launcher form of --numShards,
+    tests/test_torch_launcher.py, sharded indexes,
+    tests/test_torch_shardidx.py, and --scanShrink under --kernel auto
+    and xla, tests/test_torch_shrink.py.)"""
     from sailfish_tpu_torch.cli import main as torch_main
 
     _two_shards(toy_world, tmp_path)
