@@ -1,0 +1,9 @@
+"""Share of the traced window in which nothing ran on the device, from
+`torch.profiler` (the union of kernels, copies and fills)."""
+
+
+def read(run):
+    tr = run.trace
+    if not tr or tr["window_s"] <= 0:
+        return None
+    return 100.0 * (1.0 - tr["busy_s"] / tr["window_s"])
