@@ -1286,7 +1286,7 @@ def phase_sharded_kernels(torch, index, tidx, shards, batch, sample_reads,
     version and its bound.  The sharded map against the monolithic map,
     bit for bit (compacted slots, mlen, overflow), on the paired batch
     (both timed in turns) and on the escalation chunk; and the device
-    half of a batch (`map_prefetched`: unpack, lanes, map, merge,
+    half of a batch (`map_prefetched`: lanes, map, merge,
     collapse, counters) of the two backends in turns, each closed by a
     synchronize.  `batch` is the paired batch's (m1, m2).  Returns
     ({kernel: readings}, [run_modes' readings])."""
@@ -1385,7 +1385,7 @@ def phase_sharded_kernels(torch, index, tidx, shards, batch, sample_reads,
         torch.cuda.synchronize()
         tb[which].append(1e3 * (time.perf_counter() - t0))
     say(f"map_prefetched of the paired batch ({codes.shape[0] // 2} "
-        f"fragments; unpack, lanes, map, merge, collapse, counters; "
+        f"fragments; lanes, map, merge, collapse, counters; "
         f"synchronized, after a first call of each): sharded "
         f"{tb['sharded'][0]:.3f}, "
         f"{tb['sharded'][1]:.3f} ms against monolithic {tb['mono'][0]:.3f}, "

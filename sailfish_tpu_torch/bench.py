@@ -546,7 +546,7 @@ def run_uniform(b: Bench):
     log(f"warmup {time.time() - t0:.1f}s; mapped {bs.num_mapped}/"
         f"{args.batch}")
 
-    # one-deep pipeline as quant's mapping loop runs it: batch n+1 packed and
+    # one-deep pipeline as quant's mapping loop runs it: batch n+1 staged and
     # copied right after batch n's device work is queued, then batch n-1
     # folded on the host
     acc = backend.accumulator()

@@ -1,5 +1,8 @@
-"""Read encoding: 2-bit packing for the host-to-device hop and the
-oriented lane arrays the scan consumes.
+"""Read encoding: the JAX package's 2-bit packing of reads for the
+host-to-device hop, and the oriented lane arrays the scan consumes.  The
+port sends the uint8 codes themselves (map/pipeline.py `StagingRing`);
+`pack_reads` / `unpack_reads` are kept as the tested twins of the JAX
+package's pair.
 
 Counterparts: sailfish_tpu/map/pipeline.py `_pack_reads` /
 `_unpack_reads`, sailfish_tpu/map/encode.py `make_oriented_lanes` and

@@ -4,11 +4,12 @@ fragments or single-end reads.
 Counterpart of sailfish_tpu/map/pipeline.py (`_fused_tail`,
 `DeviceMapperBackend`), reads of any length on a 32-bit or a 64-bit
 (big_sa) index: the scan runs in the index's width.  Per
-batch: reads travel 2-bit packed and unpack on the device; both mates
-map in one lane block (map/lanes.py); merge, collapse and the batch
-counters reduce on the device (`fused_tail`).  The finishers pull
-one counter vector, the unique-class rows and, only for label hashes the
-accumulator has not seen, the exact labels.
+batch: reads travel as their uint8 codes through a reused host staging
+ring (`StagingRing`); both mates map in one lane block (map/lanes.py);
+merge, collapse and the batch counters reduce on the device
+(`fused_tail`).  The finishers pull one counter vector, the unique-class
+rows and, only for label hashes the accumulator has not seen, the exact
+labels.
 
 With --biasCorrect / --gcBiasCorrect the same pass observes the bias
 model on the device (stats/bias.py `bias_observe` over the merge's
@@ -47,7 +48,6 @@ from ..io.fastq import FastqBatch
 from ..libformat import LibraryFormat, MateStatus, compatible_hit_single
 from ..refimpl.mapper import RefMapper
 from ..stats.bias import bias_observe, make_bias_text
-from .encode import pack_reads, unpack_reads
 from .lanes import map_oriented_lanes
 from .pair import collapse_unique, merge_and_collapse
 
@@ -188,6 +188,72 @@ def fused_tail(h1f, h1r, h2f, h2r, l1, l2, expected: LibraryFormat, *,
     }
 
 
+_TORCH_DTYPES = {np.dtype(np.uint8): torch.uint8,
+                 np.dtype(np.int32): torch.int32}
+
+
+def _carve(buf: torch.Tensor, layout) -> list:
+    """The arrays of `layout` ((offset, nbytes, dtype, shape) each) as
+    views of the byte tensor `buf`."""
+    return [buf[o:o + n].view(dt).view(shape) for o, n, dt, shape in layout]
+
+
+class StagingRing:
+    """Host slots a batch's arrays pass through on their way to the
+    device.
+
+    Each batch takes the next of two slots: its arrays are written
+    into the slot, each in its own region, and the slot goes to the
+    device in one copy.  The slots are allocated once and grow to the
+    largest batch seen.  On a card they are page-locked, the copy is
+    queued (`non_blocking`) and an event marks its end; a slot is written
+    again only once its event has passed, and a wait for it is timed as
+    `sync.stage` and counted under `map.stage_waits`.  On the CPU nothing
+    is pinned and the copy is made at once: a CPU `.to()` would alias the
+    slot, which a later batch overwrites while this one may still be
+    mapped.  Spans: `map.pack` times the host's part (the wait and the
+    writes), `map.copy` the queueing of the copy."""
+
+    ALIGN = 64
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self._bufs = [None, None]
+        self._events = [None, None]
+        self._next = 0
+
+    def stage(self, arrays, ident: int) -> list:
+        """Device copies of the numpy `arrays` (uint8 or int32)."""
+        k = self._next
+        self._next = 1 - k
+        layout, end = [], 0
+        for a in arrays:
+            layout.append((end, a.nbytes, _TORCH_DTYPES[a.dtype], a.shape))
+            end += -(-a.nbytes // self.ALIGN) * self.ALIGN
+        cuda = self.device.type == "cuda"
+        with trace.span("map.pack", ident):
+            ev = self._events[k]
+            waited = ev is not None and not ev.query()
+            if waited:
+                with trace.sync("stage"):
+                    ev.synchronize()
+            trace.count("map.stage_waits", int(waited))
+            if self._bufs[k] is None or self._bufs[k].numel() < end:
+                self._bufs[k] = torch.empty(end, dtype=torch.uint8,
+                                            pin_memory=cuda)
+            buf = self._bufs[k][:end]
+            for a, h in zip(arrays, _carve(buf, layout)):
+                np.copyto(h.numpy(), a)
+        with trace.span("map.copy", ident):
+            if not cuda:
+                return _carve(buf.clone(), layout)
+            dev = buf.to(self.device, non_blocking=True)
+            if ev is None:
+                ev = self._events[k] = torch.cuda.Event()
+            ev.record(torch.cuda.current_stream(self.device))
+        return _carve(dev, layout)
+
+
 class DeviceMapperBackend:
     """Mapping on one device.  `submit_pe` (paired-end fragments) and
     `submit_se` (single-end reads) queue a batch and return a token;
@@ -212,6 +278,7 @@ class DeviceMapperBackend:
         if bias_text is None and (opts.bias_correct or opts.gc_bias_correct):
             self.bias_text = make_bias_text(index, self.device, opts,
                                             tindex=self.tindex)
+        self._ring = StagingRing(self.device)
 
     @property
     def tail_cap(self) -> int:
@@ -219,46 +286,26 @@ class DeviceMapperBackend:
         a sharded index (map/sharded.py)."""
         return self.opts.hit_capacity
 
-    # ---- host -> device ----
-    def _upload(self, arr: np.ndarray) -> torch.Tensor:
-        # a plain copy: the packed batch is a few MB, and pinning fresh
-        # host buffers per batch cost more than the copy (PERF.md); from
-        # pageable memory it ends in a stream synchronize
-        with trace.sync("upload"):
-            return torch.from_numpy(np.ascontiguousarray(arr)).to(
-                self.device)
-
     @staticmethod
     def accumulator() -> HashedEqClassAccumulator:
         """The eq-class accumulator `finish_batch_fast` folds into."""
         return HashedEqClassAccumulator()
 
+    # ---- host -> device ----
     def prefetch_pe(self, b1, b2) -> dict:
-        """The host half of `submit_pe`: pack a batch (2-bit reads + N
-        masks) and copy it to the device."""
+        """The host half of `submit_pe`: the mates' codes and lengths
+        through the staging ring to the device (`b2` None: single-end
+        reads)."""
         ident = trace.current_id() or trace.new_id()
-        with trace.span("map.pack", ident):
-            pw1, nm1 = pack_reads(b1.codes)
-            pw2, nm2 = pack_reads(b2.codes)
-        with trace.span("map.copy", ident):
-            dev = tuple(self._upload(a) for a in (
-                pw1.view(np.int32), nm1.view(np.int32),
-                b1.lens.astype(np.int32), pw2.view(np.int32),
-                nm2.view(np.int32), b2.lens.astype(np.int32)))
-        return {"dev": dev, "n": b1.count, "batches": (b1, b2),
-                "L": (b1.codes.shape[1], b2.codes.shape[1]), "id": ident}
+        mates = [b for b in (b1, b2) if b is not None]
+        dev = self._ring.stage(
+            [np.asarray(b.codes, np.uint8) for b in mates]
+            + [np.asarray(b.lens, np.int32) for b in mates], ident)
+        return {"dev": dev, "n": b1.count, "batches": (b1, b2), "id": ident}
 
     def prefetch_se(self, b) -> dict:
         """The host half of `submit_se`."""
-        ident = trace.current_id() or trace.new_id()
-        with trace.span("map.pack", ident):
-            pw, nm = pack_reads(b.codes)
-        with trace.span("map.copy", ident):
-            dev = tuple(self._upload(a) for a in (
-                pw.view(np.int32), nm.view(np.int32),
-                b.lens.astype(np.int32)))
-        return {"dev": dev, "n": b.count, "batches": (b, None),
-                "L": (b.codes.shape[1],), "id": ident}
+        return self.prefetch_pe(b, None)
 
     def _map(self, codes, lens, L, mates=1):
         """The hits of one lane block of `mates` mates' reads.  With
@@ -273,21 +320,20 @@ class DeviceMapperBackend:
             pad_lanes=2 * mates * rows)
 
     def submit_pe(self, b1, b2, expected: LibraryFormat):
-        """Queue one batch on the device; returns the token the
-        finishers take.  Its spans take a new id, or inside a batch's
-        fold (the escalation pass) that batch's."""
+        """Queue one batch on the device (`b2` None: single-end reads);
+        returns the token the finishers take.  Its spans take a new id,
+        or inside a batch's fold (the escalation pass) that batch's."""
         with trace.span("map.submit", trace.current_id() or trace.new_id()):
             return self.map_prefetched(self.prefetch_pe(b1, b2), expected)
 
     def submit_se(self, b, expected: LibraryFormat):
         """Queue one batch of single-end reads; same token as
         `submit_pe`."""
-        with trace.span("map.submit", trace.current_id() or trace.new_id()):
-            return self.map_prefetched(self.prefetch_se(b), expected)
+        return self.submit_pe(b, None, expected)
 
     def map_prefetched(self, pf: dict, expected: LibraryFormat):
-        """The device half of `submit_pe` / `submit_se`: unpack, lanes,
-        scan, post-pass, merge, collapse and counters, all queued."""
+        """The device half of `submit_pe` / `submit_se`: lanes, scan,
+        post-pass, merge, collapse and counters, all queued."""
         with trace.span("map.enqueue", pf.get("id")) as sp:
             res = self._enqueue(pf, expected)
         b1, b2 = pf["batches"]
@@ -295,10 +341,9 @@ class DeviceMapperBackend:
 
     def _enqueue(self, pf: dict, expected: LibraryFormat) -> dict:
         paired_end = pf["batches"][1] is not None
-        p1, n1, l1 = pf["dev"][:3]
-        L1 = pf["L"][0]
-        c1 = unpack_reads(p1, n1, L1)
-        B = c1.shape[0]
+        dev = pf["dev"]
+        c1, l1 = dev[0], dev[len(dev) // 2]
+        B, L1 = c1.shape
 
         def part(d, sl):
             return {k: v[sl] for k, v in d.items() if k != "num_mapped_loci"}
@@ -308,9 +353,8 @@ class DeviceMapperBackend:
             h1 = h2 = (part(a, slice(0, B)), part(a, slice(B, 2 * B)))
             l2 = l1
         else:
-            p2, n2, l2 = pf["dev"][3:]
-            L2 = pf["L"][1]
-            c2 = unpack_reads(p2, n2, L2)
+            c2, l2 = dev[1], dev[3]
+            L2 = c2.shape[1]
             if L1 == L2:
                 # both mates in one lane block: rows [m1; m2] x [fwd; rc]
                 hits = self._map(torch.cat([c1, c2]), torch.cat([l1, l2]),

@@ -26,7 +26,8 @@ import dataclasses
 from ..config import QuantOpts
 from ..device import as_device
 from ..parallel.shardidx import TorchShards, map_oriented_lanes_sharded
-from .pipeline import DeviceMapperBackend, ShardedIndexRefusal
+from .pipeline import (DeviceMapperBackend, ShardedIndexRefusal,
+                       StagingRing)
 
 
 class ShardedMapperBackend(DeviceMapperBackend):
@@ -45,6 +46,7 @@ class ShardedMapperBackend(DeviceMapperBackend):
         self.tindex = None
         self.bias_text = None
         self._escb = None
+        self._ring = StagingRing(self.device)
 
     @property
     def tail_cap(self) -> int:

@@ -22,7 +22,6 @@ READ = 48
 # the host syncs of one paired batch whose classes are all new, by site:
 # (spans, waits); the same list the card's sync debug mode reports
 BATCH_SYNCS = {
-    "sync.upload": (6, 6),          # the packed mates, masks and lengths
     "sync.compat_flags": (2, 2),    # pair.py se_compat_bits' two scalars
     "sync.slot_order": (1, 1),      # pair.py merge_and_collapse
     "sync.postpass": (3, 3),        # one nonzero per MMP after the first
@@ -145,7 +144,8 @@ def _by_id(recs):
 def test_one_batch_passes_the_listed_sync_sites(fresh):
     """One paired batch through the device backend on the CPU: every
     span carries the batch's id, and the sync spans are the sites the
-    card's sync debug mode lists, 20 waits."""
+    card's sync debug mode lists, 14 waits: the reads go up through the
+    staging ring, which does not wait."""
     idx, seqs = _world()
     be = DeviceMapperBackend(idx, QuantOpts(), "cpu")
     exp = parse_library_format("IU")
@@ -168,10 +168,10 @@ def test_one_batch_passes_the_listed_sync_sites(fresh):
             s, w = got.get(r.name, (0, 0))
             got[r.name] = (s + 1, w + r.counts["syncs"])
     assert got == BATCH_SYNCS
-    assert sum(w for _, w in got.values()) == 20
-    assert trace.aggregates()["counters"]["syncs"] == 20
+    assert sum(w for _, w in got.values()) == 14
+    assert trace.aggregates()["counters"]["syncs"] == 14
     sub = recs[0]
-    assert sub.counts["syncs"] == 16
+    assert sub.counts["syncs"] == 10
     enq = next(r for r in recs if r.name == "map.enqueue")
     kids = [r for r in recs if r.parent == recs.index(enq)]
     assert {r.name for r in kids} == {"sync.compat_flags", "sync.slot_order",
