@@ -59,7 +59,14 @@ class HashedEqClassAccumulator(EqClassAccumulator):
     only the first time a key appears, so the per-batch label traffic
     decays to zero as the run saturates the class set.  `_counts` stays
     keyed by exact labels (so finish()/merge()/checkpoint dumps are
-    identical to the base class); `_bykey` maps hash key -> label.
+    identical to the base class).
+
+    The fold of known keys is array work, not a loop over pairs: the
+    known keys sit sorted beside their slots (`_skeys`, `_sslot`; a
+    slot is a registered label's place in `_labels`), a searchsorted
+    finds a batch's keys and their counts are added per slot into
+    `_pending`, which reaches the exact-label dict only when `_counts`
+    is read.
 
     Two distinct labels colliding on all 64 hash bits would merge their
     counts (~n^2/2^65 for n classes); the exact-label path
@@ -69,29 +76,70 @@ class HashedEqClassAccumulator(EqClassAccumulator):
 
     def __init__(self):
         super().__init__()
-        self._bykey: dict[int, tuple[int, ...]] = {}
+        self._skeys = np.zeros(0, np.uint64)
+        self._sslot = np.zeros(0, np.int64)
+        self._labels: list[tuple[int, ...]] = []
+        self._pending = np.zeros(0, np.int64)
+        self._dirty = False
+
+    @property
+    def _counts(self) -> dict[tuple[int, ...], int]:
+        if self._dirty:
+            nz = np.flatnonzero(self._pending)
+            d, labels = self._exact, self._labels
+            for s, c in zip(nz.tolist(), self._pending[nz].tolist()):
+                d[labels[s]] += c
+            self._pending[nz] = 0
+            self._dirty = False
+        return self._exact
+
+    @_counts.setter
+    def _counts(self, d) -> None:
+        self._exact = d
 
     def add_hashed(self, keys: np.ndarray, counts: np.ndarray) -> np.ndarray:
         """Fold counts for already-known hash keys; return the mask of
         keys seen for the first time (caller fetches their labels and
         calls register_new)."""
-        new = np.zeros(len(keys), dtype=bool)
-        bykey = self._bykey
-        d = self._counts
-        for i, (k, c) in enumerate(zip(keys.tolist(), counts.tolist())):
-            label = bykey.get(k)
-            if label is None:
-                new[i] = True
-            else:
-                d[label] = d.get(label, 0) + c
-        return new
+        keys = np.asarray(keys, np.uint64)
+        if not len(self._skeys):
+            return np.ones(len(keys), dtype=bool)
+        # searchsorted is several times faster on ascending queries
+        order = np.argsort(keys)
+        pos = np.empty(len(keys), np.int64)
+        pos[order] = np.searchsorted(self._skeys, keys[order])
+        np.minimum(pos, len(self._skeys) - 1, out=pos)
+        hit = self._skeys[pos] == keys
+        if hit.any():
+            np.add.at(self._pending, self._sslot[pos[hit]],
+                      np.asarray(counts, np.int64)[hit])
+            self._dirty = True
+        return ~hit
 
     def register_new(self, keys, labels, counts) -> None:
-        bykey = self._bykey
-        d = self._counts
-        for k, label, c in zip(keys.tolist(), labels, counts.tolist()):
-            bykey[k] = label
+        keys = np.asarray(keys, np.uint64)
+        n0 = len(self._labels)
+        self._labels.extend(labels)
+        d = self._exact
+        for label, c in zip(self._labels[n0:], np.asarray(counts).tolist()):
             d[label] = d.get(label, 0) + c
+        order = np.argsort(keys, kind="stable")
+        at = np.searchsorted(self._skeys, keys[order])
+        self._skeys = np.insert(self._skeys, at, keys[order])
+        self._sslot = np.insert(self._sslot, at, n0 + order)
+        if len(self._labels) > len(self._pending):
+            grown = np.zeros(max(2 * len(self._pending), len(self._labels),
+                                 1024), np.int64)
+            grown[:len(self._pending)] = self._pending
+            self._pending = grown
+
+    def keyed_counts(self):
+        """(keys uint64, counts int64) of the classes registered by key,
+        in the order they were registered."""
+        keys = np.empty(len(self._sslot), np.uint64)
+        keys[self._sslot] = self._skeys
+        d = self._counts
+        return keys, np.array([d[lab] for lab in self._labels], np.int64)
 
 
 @dataclasses.dataclass

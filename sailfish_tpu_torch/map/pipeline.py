@@ -397,7 +397,9 @@ class DeviceMapperBackend:
         with trace.sync("label_index"):
             idx = torch.as_tensor(np.asarray(rep_idx, np.int64),
                                   device=res["label"].device)
-        rows = _pull("labels", res["label"][idx, :max(wmax, 1)]).tolist()
+        block = _pull("labels", res["label"][idx, :max(wmax, 1)])
+        trace.count("map.label_bytes", block.nbytes)
+        rows = block.tolist()
         return [tuple(r[:n]) for r, n in zip(rows, rep_lens.tolist())]
 
     # ---- escalation (wide-capacity second pass) ----
@@ -436,7 +438,10 @@ class DeviceMapperBackend:
 
     def finish_batch_fast(self, token, acc) -> BatchStats:
         """Fold the batch's eq classes into `acc` (a
-        HashedEqClassAccumulator) and return its counters."""
+        HashedEqClassAccumulator) and return its counters.  Counts
+        (trace.py) the classes pulled (`map.fold_classes`), those new to
+        `acc` (`map.new_classes`) and the bytes of their labels pulled
+        (`map.label_bytes`); an escalation pass counts its own."""
         with trace.span("map.fold", token[3]):
             return self._fold(token, acc)
 
@@ -444,9 +449,11 @@ class DeviceMapperBackend:
         res, n, ectx, _ = token
         with trace.span("map.pull"):
             scal, uniq, keys = self._pull_uniq(res)
+        trace.count("map.fold_classes", len(uniq))
         with trace.span("map.fold_host"):
             counts = uniq[:, 2].astype(np.int64)
             new = acc.add_hashed(keys, counts)
+        trace.count("map.new_classes", int(new.sum()))
         if new.any():
             with trace.span("map.labels"):
                 labels = self._fetch_labels(res, uniq[new, 3], uniq[new, 4])
@@ -646,7 +653,9 @@ class RefMapperBackend:
 
     def finish_batch_fast(self, token, acc) -> BatchStats:
         br = token
+        known = len(acc)
         acc.add_many(br.labels, br.label_counts)
+        trace.count("map.new_classes", len(acc) - known)
         mfl = self.opts.max_frag_len
         sel = br.unique_paired & (br.frag_lens < mfl)
         return BatchStats(

@@ -553,9 +553,7 @@ def host_classes(index: QuasiIndex, opts: QuantOpts, device, batch,
     tok = host.submit_pe(FastqBatch(c1, l1), FastqBatch(c2, l2),
                          parse_library_format("IU"))
     host.finish_batch_fast(tok, acc)
-    keys = np.fromiter(acc._bykey.keys(), dtype=np.uint64)
-    labels = [acc._bykey[int(kk)] for kk in keys]
-    counts = np.array([acc._counts[lab] for lab in labels], np.int64)
+    keys, counts = acc.keyed_counts()
     return ((keys >> np.uint64(32)).astype(np.uint32),
             (keys & np.uint64(0xFFFFFFFF)).astype(np.uint32), counts)
 

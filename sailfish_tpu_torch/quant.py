@@ -280,10 +280,8 @@ def run_quant(opts: QuantOpts, *, device, backend: str = "device",
 
     def fold(token, b1):
         nonlocal t_last, next_ckpt
-        known = len(acc)
         bs = mapper.finish_batch_fast(token, acc)
         trace.count("map.batches")
-        trace.count("map.new_classes", len(acc) - known)
         trace.count("map.escalated", bs.num_escalated)
         _accumulate(bs, state, opts.max_frag_len)
         run.num_escalated += bs.num_escalated
