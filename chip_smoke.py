@@ -5,9 +5,9 @@
 
 Phases (each prints its lines; any failure exits non-zero before the
 result line):
-  1. toolchain: card, power limit, nvcc, triton, the build of both CUDA
-     kernels (csrc/mmp_scan.cu, csrc/ubench.cu) and of the native host
-     helpers (g++), the card's copy bandwidth
+  1. toolchain: card, power limit, nvcc, triton, the build of the CUDA
+     kernels (csrc/mmp_scan.cu, csrc/ubench.cu, csrc/em.cu) and of the
+     native host helpers (g++), the card's copy bandwidth
   2. ubench: each of the 17 op-chain variants of csrc/ubench.cu against
      its plain version at 2,048 iterations from seeded buffers (exact
      int32 equality), then `python -m sailfish_tpu_torch.ubench --iters
@@ -85,10 +85,15 @@ result line):
   7. end to end, each through the CLI entry point with the kernels'
      launch counters reset before and read after, outputs checked (TPM
      sums to 1e6, the run was on cuda): `quant -l IU --hitCapacity 64
-     --hitCapacityMax 1024 --dumpEq` on the paired 100 bp reads (EM
-     rerun on the CPU must agree), `quant -l U -r` on their first mates
-     as a single-end library, and `quant -l IU` on the paired 152 bp
-     reads
+     --hitCapacityMax 1024 --dumpEq` on the paired 100 bp reads, its EM
+     rerun through csrc/em.cu on the card and on the CPU (the same
+     iterations, alphas at rtol 1e-6), then the kernel's ms a solve
+     beside its bound, its floor (classes of two transcripts) and the
+     plain loop's ms on the card, timed apart from the gate; `quant -l U
+     -r` on their first mates as a single-end library, and `quant -l IU`
+     on the paired 152 bp reads.  Each of these runs, and each bias run
+     of phase 8, must launch the EM kernel once a solve (once, or once a
+     bias segment); the kernel row's launches are theirs
   8. bias: on the oracle sample of phase 5, the device backend's bias
      observations (6-mer samples with --biasCorrect, the GC histogram
      with --gcBiasCorrect) equal the refimpl backend's per-hit replay,
@@ -227,6 +232,7 @@ LOCKSTEP_SCAN = "sailfish_tpu/map/kernels.py:244"
 # the XLA kernel's compacted scan (--scanShrink), which the stamps serve
 SHRINK_SCAN = "sailfish_tpu/map/kernels.py:341"
 UBENCH_SRC = "sailfish_tpu_torch/csrc/ubench.cu"
+EM_SRC = "sailfish_tpu_torch/csrc/em.cu"
 # the reference mapper's processes in the oracle gates: the host's cores,
 # idle while it runs
 ORACLE_WORKERS = os.cpu_count() or 1
@@ -323,18 +329,19 @@ def phase_toolchain(torch):
         # each instantiation of the scan and of its sharded modes: int32
         # positions or 64-bit ones (`long long`, mangled "x"), the k-mer
         # route (template argument false, "Lb0E") or the prefix route
+        kinds = ("mmp_scan", "facts", "slots", "replay", "em_solve")
         if "Compiling entry function" in ln and any(
-                f"{kn}_kernel" in ln
-                for kn in ("mmp_scan", "facts", "slots", "replay")):
-            kn = next(f"{kn}_kernel" for kn in (
-                "mmp_scan", "facts", "slots", "replay")
-                if f"{kn}_kernel" in ln)
+                f"{kn}_kernel" in ln for kn in kinds):
+            kn = next(f"{kn}_kernel" for kn in kinds
+                      if f"{kn}_kernel" in ln)
             tail = ln.split(kn, 1)[1]
             what = ", ".join(x for x in (
                 "64-bit" if tail.startswith("Ix") else "",
                 "prefix route" if "Lb1E" in tail[:8] else "") if x)
             if kn == "replay_kernel":  # the template argument is the mode
                 what = "shards mode" if "Lb1E" in tail[:8] else "plane mode"
+            if kn == "em_solve_kernel":  # the value type
+                what = "float64" if tail.startswith("Id") else "float32"
             say(f"ptxas {kn}{f' ({what})' if what else ''}: " + " | ".join(
                 x.replace("ptxas info    :", "").strip()
                 for x in lines[n + 1:n + 4]))
@@ -2095,12 +2102,13 @@ def phase_dist(torch, idx_dir, mates, card):
 
 
 def phase_end_to_end(torch, cli, wdir, idx_dir, tag, lib, mates, batch,
-                     card, em_check=False):
+                     card):
     """One `quant` run through the CLI entry point on the reads of
-    `mates` ((m1, m2) paired, (m,) single-end), with the scan kernel's
-    launch count reset before and read after; outputs checked."""
+    `mates` ((m1, m2) paired, (m,) single-end), with the launch counts of
+    the scan kernel and of the EM kernel (csrc/em.cu) read before and
+    after; outputs checked, and the run's one EM solve must have launched
+    the EM kernel once.  Returns (scan launches, EM launches)."""
     from sailfish_tpu_torch.eqclass.io import read_eq_classes
-    from sailfish_tpu_torch.infer.em import run_em
     from sailfish_tpu_torch import trace
 
     paths = []
@@ -2113,15 +2121,19 @@ def phase_end_to_end(torch, cli, wdir, idx_dir, tag, lib, mates, batch,
     out = os.path.join(wdir, f"quant_{tag}")
     shutil.rmtree(out, ignore_errors=True)
     launches0 = trace.counter("launch.mmp_scan")
+    em0 = trace.counter("launch.em_solve")
     t0 = time.time()
     rc = cli.main(["quant", "-i", idx_dir, "-l", lib, *reads,
                    "-o", out, "--hitCapacity", "64", "--hitCapacityMax",
                    "1024", "--dumpEq", "--batchSize", str(batch)])
     wall = time.time() - t0
     launches = trace.counter("launch.mmp_scan") - launches0
+    em_launches = trace.counter("launch.em_solve") - em0
     require(rc == 0, f"quant -l {lib} exited {rc}")
     require(launches > 0, f"quant -l {lib} ({tag}) launched the scan "
             "kernel 0 times")
+    require(em_launches == 1, f"quant -l {lib} ({tag}) launched the EM "
+            f"kernel {em_launches} times for its one solve")
 
     with open(os.path.join(out, "aux", "meta_info.json")) as fh:
         meta = json.load(fh)
@@ -2150,6 +2162,7 @@ def phase_end_to_end(torch, cli, wdir, idx_dir, tag, lib, mates, batch,
         f"{100.0 * meta['num_mapped'] / meta['num_processed']:.2f}%, "
         f"{eq.num_classes} eq classes, {qt['escalated_fragments']} "
         f"fragments escalated to C=1024, kernel launches {launches}, "
+        f"EM kernel launches {em_launches}, "
         f"TPM sum {tpm:.3f}, on {qt['device']}, CLI wall {wall:.1f}s "
         f"[{card}]")
     say(f"quant -l {lib} ({tag}) batches: ms {bms} | "
@@ -2159,29 +2172,108 @@ def phase_end_to_end(torch, cli, wdir, idx_dir, tag, lib, mates, batch,
         f"{qt['inference_seconds']:.3f}s "
         f"({qt['em_iterations'] / max(qt['inference_seconds'], 1e-9):.1f} "
         f"iterations/s, float64) [{card}]")
-    if not em_check:
-        return launches
+    return launches, em_launches
 
-    # the EM on the card against the same EM on the CPU (torch)
-    eff = vals[:, 1]
-    total = float(meta["num_mapped"])
+
+def phase_em(torch, out, card):
+    """The EM on the classes and effective lengths of the run in `out`
+    (phase 7's paired run): `run_em` on the card, through csrc/em.cu,
+    against the plain torch loop on the CPU (the same iterations and
+    convergence, alphas at rtol 1e-6, one kernel launch).  Then, gating
+    nothing: the kernel's ms a solve (CUDA events, three solves) beside
+    its bound and the plain loop's ms on the card.  Returns the kernel
+    table's row."""
+    from sailfish_tpu_torch.eqclass.io import read_eq_classes
+    from sailfish_tpu_torch.infer import em
+    from sailfish_tpu_torch import trace
+
+    _, eq = read_eq_classes(os.path.join(out, "aux", "eq_classes.txt"))
+    with open(os.path.join(out, "aux", "meta_info.json")) as fh:
+        total = float(json.load(fh)["num_mapped"])
+    eff = _quant_sf(out)[:, 1]
+    T = len(eff)
+    launches0 = trace.counter("launch.em_solve")
     t0 = time.time()
-    g = run_em(eq, eff, total, len(rows), device="cuda")
+    g = em.run_em(eq, eff, total, T, device="cuda")
     t_g = time.time() - t0
+    launches = trace.counter("launch.em_solve") - launches0
     t0 = time.time()
-    c = run_em(eq, eff, total, len(rows), device="cpu")
+    c = em.run_em(eq, eff, total, T, device="cpu")
     t_c = time.time() - t0
-    require(g.num_iterations == c.num_iterations,
-            f"EM iterations differ: cuda {g.num_iterations}, cpu "
-            f"{c.num_iterations}")
+    require(launches == 1, f"the EM on the card launched csrc/em.cu "
+            f"{launches} times, not once")
+    require(g.num_iterations == c.num_iterations
+            and g.converged == c.converged,
+            f"EM iterations differ: cuda {g.num_iterations} "
+            f"({g.converged}), cpu {c.num_iterations} ({c.converged})")
     require(np.allclose(g.alphas, c.alphas, rtol=1e-6, atol=1e-8),
             "EM alphas differ between cuda and cpu beyond rtol 1e-6")
     rel = np.abs(g.alphas - c.alphas) / np.maximum(np.abs(c.alphas), 1e-300)
+    err = float(rel[c.alphas > 0].max(initial=0.0))
     say(f"EM cuda vs cpu: {g.num_iterations} iterations both, max rel "
-        f"diff {float(rel[c.alphas > 0].max(initial=0.0)):.3g} "
-        f"(cuda {t_g:.2f}s, cpu {t_c:.2f}s) [{card}]")
-    return launches
+        f"diff {err:.3g}, csrc/em.cu launches {launches} (cuda "
+        f"{t_g:.2f}s with the upload, cpu {t_c:.2f}s) [{card}]")
 
+    # timing only: the kernel and the plain loop from one uploaded problem
+    dev = torch.device("cuda")
+    p = em._Problem(eq, eff, T, dev, torch.float64)
+    active = np.zeros(T, dtype=bool)
+    active[np.unique(eq.members)] = True
+    a0 = torch.as_tensor(np.where(active, total / active.sum(), 0.0),
+                         dtype=torch.float64, device=dev)
+    lim = dict(min_iter=50, max_iter=10000, rel_diff_tol=0.01)
+    its = []
+
+    def kernel():
+        its.append(em._iterate_cuda(p, a0.clone(), **lim)[2])
+
+    ms = _time_ms(torch, kernel, 3)
+    plain_ms = _time_ms(torch, lambda: em._iterate(
+        p, a0.clone(), em._em_step, **lim), 1)
+    M, C = len(eq.members), eq.num_classes
+    # each iteration: a transcript, a class and a weight a member (int32,
+    # int32, float64), an offset and a count a class, and a transcript's
+    # alpha read, singleton count read and new alpha written
+    step_bytes = 16 * M + 12 * C + 24 * T
+    bound = bound_ms(its[-1] * step_bytes, 0)
+    floor = {n: _em_floor_us(torch, em, n) for n in (1000, T)}
+    say(f"EM kernel: {its[-1]} iterations over {M} members, {C} classes "
+        f"(the largest {int(np.diff(eq.offsets).max())} members), {T} "
+        f"transcripts (the most classes a transcript "
+        f"{int(np.bincount(eq.members).max())}): {ms:.3f} ms a solve "
+        f"({1e3 * ms / its[-1]:.2f} us an iteration), bound "
+        f"{bound['bound_ms']:.3f} ms by {bound['bound_by']} at the HBM "
+        f"rate ({ms / bound['bound_ms']:.1f} times; an iteration's "
+        f"{step_bytes} bytes stay in L2, so their floor is lower still); "
+        f"the floor of the barriers and load chains (pairs of transcripts "
+        f"as classes) "
+        + ", ".join(f"{us:.2f} us an iteration at {n} transcripts"
+                    for n, us in floor.items())
+        + f" ({ms / its[-1] * 1e3 / floor[T]:.1f} times the floor at {T})"
+        f"; the plain loop on the card {plain_ms:.3f} ms [{card}]")
+    return {"name": "em_solve", "route": "cuda", "source": EM_SRC,
+            "replaces": None, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, **bound, "library_ms": None,
+            "floor_us_by_transcripts": floor,
+            "iterations": its[-1], "members": M, "classes": C,
+            "transcripts": T}
+
+
+def _em_floor_us(torch, em, num_txps):
+    """us an iteration of csrc/em.cu where the work is least: classes of
+    two neighbouring transcripts, each transcript in one class, 1,000
+    iterations run to the cap.  What is left is the two grid barriers a
+    step and the chains of dependent loads of a row."""
+    from sailfish_tpu_torch.eqclass.classes import EqClasses
+
+    n = max(num_txps // 2 * 2, 2)
+    eq = EqClasses.from_items([((t, t + 1), 10) for t in range(0, n, 2)])
+    p = em._Problem(eq, np.full(n, 1000.0), n, torch.device("cuda"),
+                    torch.float64)
+    a0 = torch.full((n,), 10.0, dtype=torch.float64, device="cuda")
+    lim = dict(min_iter=1000, max_iter=1000, rel_diff_tol=0.0)
+    ms = _time_ms(torch, lambda: em._iterate_cuda(p, a0.clone(), **lim), 3)
+    return 1e3 * ms / 1000
 
 
 def phase_bias_oracle(torch, index, tidx, mates, ref_br, card):
@@ -2336,18 +2428,28 @@ def _fld_of(out):
 
 def phase_bias_runs(torch, cli, wdir, idx_dir, batch, card):
     """`quant -l IU --biasCorrect` and `--gcBiasCorrect` on the paired
-    100 bp library of phase 7, through the CLI."""
+    100 bp library of phase 7, through the CLI; each EM segment must
+    have launched the EM kernel once.  Returns (outputs, the scan
+    kernel's launches, the EM kernel's launches) by run."""
+    from sailfish_tpu_torch import trace
+
     reads = ["-l", "IU", "-1", os.path.join(wdir, "reads_pe100_1.fq"),
              "-2", os.path.join(wdir, "reads_pe100_2.fq")]
-    outs, launches = {}, {}
+    outs, launches, em_launches = {}, {}, {}
     for tag, flag in (("bias_seq", "--biasCorrect"),
                       ("bias_gc", "--gcBiasCorrect")):
+        em0 = trace.counter("launch.em_solve")
         t0 = time.time()
         out, meta, launches[tag], st = run_quant_cli(
             cli, wdir, idx_dir, tag,
             [*reads, flag, "--dumpEq", "--batchSize", str(batch)], maps=True)
         wall = time.time() - t0
+        em_launches[tag] = trace.counter("launch.em_solve") - em0
         qt = meta["quant_timings"]
+        # a segment a solve: one more than the effective-length updates
+        segments = len(qt["bias_update_seconds"]) + 1
+        require(em_launches[tag] == segments, f"{flag}: the EM kernel "
+                f"launched {em_launches[tag]} times for {segments} segments")
         vals = _quant_sf(out)
         require((vals[:, 1] > 0).all(), f"{flag}: an effective length is "
                 "not positive")
@@ -2373,10 +2475,11 @@ def phase_bias_runs(torch, cli, wdir, idx_dir, batch, card):
             f"update_effective_lengths calls ({upd} s each, peak "
             f"{qt['bias_update_peak_bytes'] / 2**30:.3f} GiB allocated "
             f"during inference), {changed} of {len(vals)} effective lengths "
-            f"changed, kernel launches {launches[tag]}, batch ms "
+            f"changed, kernel launches {launches[tag]}, EM kernel launches "
+            f"{em_launches[tag]}, batch ms "
             f"{qt['batch_ms']}, CLI wall {wall:.1f}s [{card}]")
         outs[tag] = (out, meta, len(upd))
-    return outs, launches
+    return outs, launches, em_launches
 
 
 def phase_bias_update(torch, cut, full_text_index, outs, card):
@@ -3418,19 +3521,23 @@ def main(argv=None) -> int:
             txp_lens=index.txp_lens, big_sa=False)
         del tidx, index, ref_br
         torch.cuda.empty_cache()
-        launches = phase_end_to_end(
+        # the EM kernel's launches in each CLI run, one a solve
+        em_launches = {}
+        launches, em_launches["pe100"] = phase_end_to_end(
             torch, cli, wdir, idx_dir, "pe100", "IU",
             tuple(np.concatenate([b[i] for b in batches]) for i in (0, 1)),
-            args.batch, smi, em_check=True)
-        launches_se = phase_end_to_end(
+            args.batch, smi)
+        em_row = phase_em(torch, os.path.join(wdir, "quant_pe100"), smi)
+        launches_se, em_launches["se100"] = phase_end_to_end(
             torch, cli, wdir, idx_dir, "se100", "U",
             (np.concatenate([b[0] for b in batches]),), args.batch, smi)
-        launches_long = phase_end_to_end(
+        launches_long, em_launches[f"pe{LONG_READ_LEN}"] = phase_end_to_end(
             torch, cli, wdir, idx_dir, f"pe{LONG_READ_LEN}", "IU",
             long_batch, args.batch, smi)
         note("end to end done")
-        bias_outs, more_launches = phase_bias_runs(torch, cli, wdir, idx_dir,
-                                                   args.batch, smi)
+        bias_outs, more_launches, bias_em = phase_bias_runs(
+            torch, cli, wdir, idx_dir, args.batch, smi)
+        em_launches.update(bias_em)
         phase_bias_update(torch, cut, whole, bias_outs, smi)
         note("bias done")
         phase_resume_samplers(torch, cli, wdir, idx_dir, smi)
@@ -3573,6 +3680,10 @@ def main(argv=None) -> int:
         "launches": shrink_launches["shrink2_pe100"],
         "library_ms": None, **shrink_row,
         "launches_by_run": shrink_launches})
+    # the EM kernel's launches are those of the CLI runs (the main
+    # path), not of phase_em's own solves
+    kernels.append({**em_row, "launches": em_launches["pe100"],
+                    "launches_by_run": em_launches})
     say(json.dumps({"kernels": kernels}))
     say(smi)
     say(json.dumps({"ok": True, "device": {

@@ -27,7 +27,8 @@ import time
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent
-SOURCES = (_PKG / "csrc" / "mmp_scan.cu", _PKG / "csrc" / "ubench.cu")
+SOURCES = (_PKG / "csrc" / "mmp_scan.cu", _PKG / "csrc" / "ubench.cu",
+           _PKG / "csrc" / "em.cu")
 HOST_SOURCES = (_PKG / "csrc" / "host" / "sais.cpp",
                 _PKG / "csrc" / "host" / "fastq_decode.cpp")
 BUILD_DIR = _PKG / "_build"
@@ -37,7 +38,8 @@ NVCC_FLAGS = (
 )
 GXX_FLAGS = ("-O3", "-fPIC", "-std=c++17")
 
-_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _LL, _D = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                   ctypes.c_double)
 
 
 @dataclasses.dataclass
@@ -166,6 +168,11 @@ def _bind(lib: ctypes.CDLL) -> None:
         _P, _I, _P,
     ]
     lib.sf_ubench.restype = _I
+    lib.sf_em_solve.argtypes = [
+        _I, _I, _P, _I, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+        _D, _D, _D, _I, _I, _I, _P,
+    ]
+    lib.sf_em_solve.restype = _I
     lib.sf_ubench_num_variants.argtypes = []
     lib.sf_ubench_num_variants.restype = _I
     lib.sf_cuda_error_string.argtypes = [_I]

@@ -102,7 +102,7 @@ def test_ctypes_binding_follows_the_c_interface():
     """Nothing compiles on a CPU-only machine, so the sources are read:
     every extern "C" function of csrc/*.cu is bound in `_ext._bind` with
     one argtype per C parameter, of the matching kind (pointer, int,
-    long long), and no kernel source includes a PyTorch header."""
+    long long, double), and no kernel source includes a PyTorch header."""
     import ctypes
     import glob
 
@@ -122,6 +122,7 @@ def test_ctypes_binding_follows_the_c_interface():
     lib = FakeLib()
     _ext._bind(lib)
     kinds = {"int": ctypes.c_int, "longlong": ctypes.c_longlong,
+             "double": ctypes.c_double,
              "constvoid*": ctypes.c_void_p, "void*": ctypes.c_void_p}
     sources = sorted(glob.glob(os.path.join(
         ROOT, "sailfish_tpu_torch", "csrc", "*.cu")))
